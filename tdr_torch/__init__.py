@@ -1,0 +1,14 @@
+"""tdr_torch — the PyTorch/CUDA port of ``tdr`` for NVIDIA Hopper (H100).
+
+A package of its own beside ``tdr``: it imports ``torch`` and never ``jax``,
+and nothing of ``tdr``.  The host text layer is a copy (``tdr_torch.text``,
+``tdr_torch.native``, ``tdr_torch.data``, ``tdr_torch.eval``,
+``tdr_torch.utils``); the index build, scoring, models and router are torch
+code, and the two kernels on the BM25 path are hand-written CUDA
+(``tdr_torch/csrc``).
+
+Every entry point takes ``device=``; with none given it uses ``cuda`` and
+raises when CUDA is missing (it never falls back to the CPU quietly).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,17 @@
+from tdr_torch.index.build import (
+    IndexStats,
+    SparseIndex,
+    build_index,
+    build_tfidf_index,
+    quantize_head,
+    sparse_index_from_arrays,
+)
+
+__all__ = [
+    "IndexStats",
+    "SparseIndex",
+    "build_index",
+    "build_tfidf_index",
+    "quantize_head",
+    "sparse_index_from_arrays",
+]

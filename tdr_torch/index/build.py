@@ -1,0 +1,395 @@
+"""Index build for the port: term-doc statistics + the sparse score-row index.
+
+Counterpart of ``tdr/index/build.py``.  The layout is the same — a dense
+``(D, N_pad)`` head of premultiplied score rows for the top-df terms plus a
+flat CSR over all terms — and the static-shape rules (``_bucket``,
+``_pad_docs``, ``full_head_bytes``, ``_auto_head_size``, the 256-floor of
+``head_size``, the ``tail_pmax`` bucketing and the postings padding past
+nnz) are copied exactly, so every padded shape equals the JAX build's.
+
+Global statistics (df, idf, head selection, ``tail_pmax``) are computed on
+the host with numpy, as the JAX build's ``df_host`` path does; the per-entry
+work (score weights, the CSR sort and the head scatter) runs as torch ops on
+the index's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tdr_torch.utils.config import BM25Config, IndexConfig
+from tdr_torch.utils.device import DeviceLike, resolve_device
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _bucket(n: int, multiple: int = 128) -> int:
+    """Round n up onto a {2^k, 1.5·2^k} geometric grid (then to a hardware
+    multiple), as ``tdr.index.build._bucket``."""
+    n = max(n, 1)
+    k = max((n - 1).bit_length() - 1, 0)
+    for cand in (1 << k, (3 << k) // 2, 1 << (k + 1), 3 << k):
+        if cand >= n:
+            return _round_up(cand, multiple)
+    return _round_up(n, multiple)
+
+
+def _compute_idf_np(df: np.ndarray, n_docs: int, variant: str) -> np.ndarray:
+    """df (V,) → idf (V,) on the host (the three reference variants)."""
+    df = np.asarray(df, np.float32)
+    n = np.float32(n_docs)
+    if variant in ("bm25", "bm25_plus1"):
+        return np.log1p((n - df + 0.5) / (df + 0.5)).astype(np.float32)
+    if variant == "classic":
+        return (np.log((n + 1.0) / (df + 1.0)) + 1.0).astype(np.float32)
+    raise ValueError(f"unknown idf variant: {variant}")
+
+
+def _select_head_np(df: np.ndarray, head_size: int) -> np.ndarray:
+    """head_slot (V,): slot in [0, head_size) for the top-df terms (value
+    descending, lowest term id first), -1 else."""
+    vocab_size = df.shape[0]
+    head_slot = np.full(vocab_size, -1, np.int32)
+    if head_size > 0:
+        order = np.lexsort((np.arange(vocab_size), -np.asarray(df)))[:head_size]
+        keep = np.asarray(df)[order] > 0
+        head_slot[order[keep]] = np.arange(head_size, dtype=np.int32)[keep]
+    return head_slot
+
+
+def _quantize_head_rows(head_rows: torch.Tensor):
+    """Per-doc-column symmetric int8 quantization of the dense head:
+    ``head[d, n] ≈ q8[d, n] * scale[n]`` (see tdr.index.build)."""
+    rows = head_rows.float()
+    colmax = rows.abs().amax(dim=0)
+    scale = colmax / 127.0
+    inv = torch.where(scale > 0, 1.0 / scale.clamp_min(1e-30),
+                      torch.zeros_like(scale))
+    q8 = torch.round(rows * inv[None, :]).to(torch.int8)
+    return q8, scale
+
+
+def quantize_head(index: "SparseIndex") -> "SparseIndex":
+    """Copy of ``index`` with an int8 scalar-quantized head; no-op if it is
+    quantized already."""
+    if index.head_rows.dtype == torch.int8:
+        return index
+    q8, scale = _quantize_head_rows(index.head_rows)
+    return dataclasses.replace(index, head_rows=q8, head_scale=scale)
+
+
+@dataclass
+class IndexStats:
+    """Per-partition statistics; ``df`` is the local postings length."""
+
+    df: torch.Tensor          # (V,) float32
+    idf: torch.Tensor         # (V,) float32
+    doc_len: torch.Tensor     # (N_pad,) float32, zero beyond n_docs
+    avgdl: torch.Tensor       # () float32
+
+    def to(self, device: DeviceLike) -> "IndexStats":
+        return IndexStats(*(t.to(device) for t in
+                            (self.df, self.idf, self.doc_len, self.avgdl)))
+
+
+@dataclass
+class SparseIndex:
+    """Sparse score-row index: dense head + flat-CSR tail, as tensors on one
+    device (``tdr.index.build.SparseIndex`` field for field)."""
+
+    indptr: torch.Tensor          # (V+1,) int32
+    postings_doc: torch.Tensor    # (nnz_pad,) int32, padded with 0
+    postings_w: torch.Tensor      # (nnz_pad,) float32, padded 0
+    postings_tf: torch.Tensor     # (nnz_pad,) float32, padded 0
+    head_slot: torch.Tensor       # (V,) int32: slot in head_rows, or -1
+    head_rows: torch.Tensor       # (D, N_pad) float32 / bfloat16 / int8
+    stats: IndexStats
+    head_scale: Optional[torch.Tensor] = None   # (N_pad,) float32, int8 heads
+
+    n_docs: int = 0
+    n_docs_pad: int = 0
+    vocab_size: int = 0
+    tail_pmax: int = 0
+    head_size: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.head_rows.device
+
+    def to(self, device: DeviceLike) -> "SparseIndex":
+        dev = torch.device(device)
+        return dataclasses.replace(
+            self,
+            indptr=self.indptr.to(dev), postings_doc=self.postings_doc.to(dev),
+            postings_w=self.postings_w.to(dev),
+            postings_tf=self.postings_tf.to(dev),
+            head_slot=self.head_slot.to(dev), head_rows=self.head_rows.to(dev),
+            stats=self.stats.to(dev),
+            head_scale=(None if self.head_scale is None
+                        else self.head_scale.to(dev)))
+
+
+def _build_core(
+    doc_ids: torch.Tensor,      # (nnz_pad,) int32, padding has term_id == vocab_size
+    term_ids: torch.Tensor,     # (nnz_pad,) int32
+    tfs: torch.Tensor,          # (nnz_pad,) float32, padded 0
+    doc_len: torch.Tensor,      # (n_docs_pad,) float32
+    idf: torch.Tensor,          # (V,) float32
+    head_slot: torch.Tensor,    # (V,) int32
+    avgdl: torch.Tensor,        # () float32
+    *,
+    vocab_size: int,
+    n_docs_pad: int,
+    head_size: int,
+    k1: float,
+    b: float,
+    dl_scaled_by_b: bool,
+    weight_kind: str,           # "bm25" | "tfidf"
+):
+    valid = term_ids < vocab_size
+    t_clamped = torch.where(valid, term_ids, 0).long()
+    d_clamped = doc_ids.clamp(0, n_docs_pad - 1).long()
+    dev = term_ids.device
+
+    # local postings length per term (CSR segment bounds)
+    df_local = torch.zeros(vocab_size, dtype=torch.float32, device=dev)
+    df_local.index_add_(0, t_clamped, valid.float())
+
+    # per-entry score weight (same operation order as the JAX build)
+    dl = doc_len[d_clamped]
+    if weight_kind == "bm25":
+        norm = (b if dl_scaled_by_b else 1.0) * dl / avgdl
+        denom = tfs + k1 * (1.0 - b + norm)
+        w = idf[t_clamped] * tfs * (k1 + 1.0) / torch.where(
+            denom > 0, denom, torch.ones_like(denom))
+    elif weight_kind == "tfidf":
+        w = idf[t_clamped] * tfs
+    else:
+        raise ValueError(weight_kind)
+    w = torch.where(valid, w, torch.zeros_like(w))
+
+    if weight_kind == "tfidf":
+        sq = torch.zeros(n_docs_pad, dtype=torch.float32, device=dev)
+        sq.index_add_(0, d_clamped, w * w)
+        inv = torch.where(sq > 0, torch.rsqrt(sq), torch.zeros_like(sq))
+        w = w * inv[d_clamped]
+
+    # CSR layout: stable sort by term id (padding term_id == V sorts last)
+    order = torch.argsort(term_ids, stable=True)
+    valid_o = valid[order]
+    postings_doc = torch.where(valid_o, doc_ids[order], 0).to(torch.int32)
+    postings_w = w[order]
+    postings_tf = torch.where(valid_o, tfs[order], torch.zeros_like(tfs))
+    indptr = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.cumsum(df_local.to(torch.int32), 0, dtype=torch.int32)])
+
+    # dense head rows: scatter-add the premultiplied weights
+    entry_slot = head_slot.long()[t_clamped]
+    in_head = (entry_slot >= 0) & valid
+    head_rows = torch.zeros((max(head_size, 1), n_docs_pad),
+                            dtype=torch.float32, device=dev)
+    head_rows.index_put_(
+        (torch.where(in_head, entry_slot, 0), d_clamped),
+        torch.where(in_head, w, torch.zeros_like(w)), accumulate=True)
+    return indptr, postings_doc, postings_w, postings_tf, head_rows, df_local
+
+
+def _pad_docs(n_docs: int, cfg: IndexConfig) -> int:
+    n_docs_pad = max(_round_up(max(n_docs, 1), cfg.doc_pad_multiple),
+                     cfg.doc_pad_multiple)
+    if cfg.shape_bucketing:
+        n_docs_pad = _bucket(n_docs_pad, cfg.doc_pad_multiple)
+    return n_docs_pad
+
+
+def _head_itemsize(cfg: IndexConfig) -> int:
+    return {"bfloat16": 2, "int8": 1}.get(cfg.head_dtype, 4)
+
+
+def full_head_bytes(vocab_size: int, n_docs: int, cfg: IndexConfig) -> int:
+    """Device bytes for a dense head row per vocab term (the router's
+    waterfill cap)."""
+    n_docs_pad = _pad_docs(n_docs, cfg)
+    vocab_pad = _bucket(max(vocab_size, 1), 128) if cfg.shape_bucketing else vocab_size
+    return vocab_pad * n_docs_pad * _head_itemsize(cfg)
+
+
+def _auto_head_size(vocab_size: int, n_docs_pad: int, cfg: IndexConfig) -> int:
+    """Head row count from the device byte budget at the head's dtype."""
+    if n_docs_pad == 0:
+        return 0
+    d = int(cfg.head_budget_bytes // (_head_itemsize(cfg) * n_docs_pad))
+    d = max(0, min(d, vocab_size))
+    return (d // 8) * 8 if d >= 8 else (1 if d > 0 else 0)
+
+
+def _pad_coo(doc_ids, term_ids, tfs, vocab_size, nnz_pad):
+    nnz = int(doc_ids.shape[0])
+    di = np.zeros(nnz_pad, np.int32)
+    ti = np.full(nnz_pad, vocab_size, np.int32)   # sentinel pads sort last
+    tv = np.zeros(nnz_pad, np.float32)
+    di[:nnz] = doc_ids
+    ti[:nnz] = term_ids
+    tv[:nnz] = tfs
+    return di, ti, tv
+
+
+def _bucket_tail_pmax(tail_pmax: int, bucketing: bool) -> int:
+    if tail_pmax <= 0:
+        return 8
+    if bucketing:
+        return _bucket(tail_pmax, 8)
+    return max(8, _round_up(tail_pmax, 128))
+
+
+def build_index(
+    doc_ids: np.ndarray,
+    term_ids: np.ndarray,
+    tfs: np.ndarray,
+    doc_lens: np.ndarray,
+    vocab_size: int,
+    bm25: BM25Config = BM25Config(),
+    index_cfg: IndexConfig = IndexConfig(),
+    weight_kind: str = "bm25",
+    head_size: Optional[int] = None,
+    df_host: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
+) -> SparseIndex:
+    """Pad the COO to static shapes, run the build on ``device`` and derive
+    the static tail width (``tdr.index.build.build_index``'s contract for
+    one unsharded partition; the sharded build's global-statistics
+    overrides come with the parallel layer).
+
+    Without ``df_host`` the document frequencies are counted from the COO
+    on the host (one entry per unique (doc, term) pair, so the count is the
+    df), which gives the same numbers as the JAX build's device segment-sum.
+    """
+    dev = resolve_device(device)
+    n_docs = int(doc_lens.shape[0])
+    bucketing = index_cfg.shape_bucketing
+    n_docs_pad = _pad_docs(n_docs, index_cfg)
+    nnz = int(doc_ids.shape[0])
+    nnz_pad = max(_round_up(max(nnz, 1), index_cfg.nnz_pad_multiple),
+                  index_cfg.nnz_pad_multiple)
+    if bucketing:
+        nnz_pad = _bucket(nnz_pad, index_cfg.nnz_pad_multiple)
+    vocab_pad = _bucket(max(vocab_size, 1), 128) if bucketing else vocab_size
+
+    di, ti, tv = _pad_coo(doc_ids, term_ids, tfs, vocab_pad, nnz_pad)
+    dl = np.zeros(n_docs_pad, np.float32)
+    dl[:n_docs] = doc_lens
+
+    df_g = np.zeros(vocab_pad, np.float32)
+    if df_host is not None:
+        df_g[:len(df_host)] = np.asarray(df_host, np.float32)
+    else:
+        df_g[:] = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
+    idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
+    if head_size is None:
+        if index_cfg.head_min_df > 0:
+            head_size = int(np.sum(df_g >= index_cfg.head_min_df))
+        else:
+            head_size = _auto_head_size(vocab_pad, n_docs_pad, index_cfg)
+        if bucketing and 256 < head_size < vocab_pad:
+            head_size = (head_size // 256) * 256   # floor: stay in budget
+    head_size = min(head_size, vocab_pad)
+    head_slot = _select_head_np(df_g, head_size)
+    tail_df = df_g[head_slot < 0]
+    tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
+                                  bucketing)
+    avgdl = float(doc_lens.sum() / max(n_docs, 1))
+
+    head_slot_t = torch.as_tensor(head_slot, device=dev)
+    idf_t = torch.as_tensor(idf, device=dev)
+    avgdl_t = torch.tensor(avgdl, dtype=torch.float32, device=dev)
+    (indptr, postings_doc, postings_w, postings_tf, head_rows,
+     df_local) = _build_core(
+        torch.as_tensor(di, device=dev), torch.as_tensor(ti, device=dev),
+        torch.as_tensor(tv, device=dev), torch.as_tensor(dl, device=dev),
+        idf_t, head_slot_t, avgdl_t,
+        vocab_size=vocab_pad, n_docs_pad=n_docs_pad, head_size=head_size,
+        k1=bm25.k1, b=bm25.b, dl_scaled_by_b=bm25.dl_scaled_by_b,
+        weight_kind=weight_kind,
+    )
+
+    head_scale = None
+    if index_cfg.head_dtype == "bfloat16":
+        head_rows = head_rows.to(torch.bfloat16)
+    elif index_cfg.head_dtype == "int8":
+        head_rows, head_scale = _quantize_head_rows(head_rows)
+
+    # postings padding past nnz, kept so shapes equal the JAX build's (its
+    # TPU tail kernel reads an aligned window past the segment end; the CUDA
+    # kernel reads exactly [start, start + len))
+    need = nnz + _round_up(tail_pmax + 1023, 1024)
+    if int(postings_doc.shape[0]) < need:
+        grow = (_bucket(need, index_cfg.nnz_pad_multiple) if bucketing
+                else _round_up(need, index_cfg.nnz_pad_multiple))
+        pad = grow - int(postings_doc.shape[0])
+        postings_doc = torch.nn.functional.pad(postings_doc, (0, pad))
+        postings_w = torch.nn.functional.pad(postings_w, (0, pad))
+        postings_tf = torch.nn.functional.pad(postings_tf, (0, pad))
+
+    stats = IndexStats(df=df_local, idf=idf_t,
+                       doc_len=torch.as_tensor(dl, device=dev), avgdl=avgdl_t)
+    return SparseIndex(
+        indptr=indptr, postings_doc=postings_doc, postings_w=postings_w,
+        postings_tf=postings_tf, head_slot=head_slot_t, head_rows=head_rows,
+        stats=stats, head_scale=head_scale, n_docs=n_docs,
+        n_docs_pad=n_docs_pad, vocab_size=vocab_pad, tail_pmax=tail_pmax,
+        head_size=head_size,
+    )
+
+
+def build_tfidf_index(*args, **kwargs) -> SparseIndex:
+    """TF-IDF cosine index: same layout, L2-normalized tf·idf rows with the
+    classic idf."""
+    kwargs.setdefault("weight_kind", "tfidf")
+    bm25 = kwargs.pop("bm25", BM25Config(idf_variant="classic"))
+    if bm25.idf_variant == "bm25":
+        bm25 = dataclasses.replace(bm25, idf_variant="classic")
+    return build_index(*args, bm25=bm25, **kwargs)
+
+
+_INDEX_ARRAYS = ("indptr", "postings_doc", "postings_w", "postings_tf",
+                 "head_slot", "head_rows")
+_STATS_ARRAYS = ("df", "idf", "doc_len", "avgdl")
+_STATIC_FIELDS = ("n_docs", "n_docs_pad", "vocab_size", "tail_pmax", "head_size")
+
+
+def _tensor_from_saved(arr: np.ndarray, dtype: str, dev: torch.device):
+    if dtype == "bfloat16":
+        # stored as the uint16 bit pattern
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def sparse_index_from_arrays(arrays: Dict[str, np.ndarray], meta: dict,
+                             device: DeviceLike = None) -> SparseIndex:
+    """A ``SparseIndex`` from numpy arrays in the layout of a ``tdr`` sparse
+    checkpoint (``arrays.npz`` + ``meta.json``): index arrays by field name,
+    statistics as ``stats_<name>``, ``meta["statics"]`` for the static
+    fields and ``meta["dtypes"]`` naming each array's dtype (bf16 arrives as
+    its uint16 bits).  Carries an index built by the JAX package across, so
+    a scoring fault can be told from a build fault."""
+    dev = resolve_device(device)
+    dtypes = meta.get("dtypes", {})
+
+    def get(key):
+        return _tensor_from_saved(arrays[key], dtypes.get(key, ""), dev)
+
+    kw = {name: get(name) for name in _INDEX_ARRAYS}
+    if "head_scale" in arrays:
+        kw["head_scale"] = get("head_scale")
+    stats = IndexStats(**{name: get(f"stats_{name}") for name in _STATS_ARRAYS})
+    statics = {k: int(meta["statics"][k]) for k in _STATIC_FIELDS}
+    return SparseIndex(stats=stats, **kw, **statics)

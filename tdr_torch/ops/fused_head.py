@@ -1,0 +1,175 @@
+"""Fused full-vocab-head top-k: the port of ``fused_head_topk`` in
+``tdr/ops/pallas_flat.py``.
+
+Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_head.cu``: the head
+product ``W · head`` with f32 accumulation plus a -1e30 pad bias, reduced
+to the maximum of each group of 8 documents, so the (Q, N) score matrix
+never reaches memory.  Phase 2 is torch code, as the JAX code does it in
+XLA: top-k over the group maxima, an exact rescore of the k·8 candidate
+documents from the active terms (slot-summed, head-dtype-rounded weights
+with a first-occurrence guard for terms sharing a slot), and a 2-key sort
+(value descending, row ascending).  The exactness argument is the one in
+``tdr.ops.topk.topk_grouped``.
+
+``fused_head_blockmax`` launches the kernel for CUDA tensors and takes the
+plain version, ``fused_head_blockmax_plain``, only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from tdr_torch.ops import cuda_build
+from tdr_torch.ops.topk import fast_topk, sort_desc_by_value_then_index
+
+NEG = -1e30          # finite -inf stand-in: survives 0*x math
+SUB = 8              # documents per group
+_LANES = 128
+_Q_TILE = 128        # the kernel's query tile; W is padded to a multiple
+_VMEM_STEP_BUDGET = 5 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pick_head_block(n: int, qp: int, d: int, esize: int, sub: int) -> int:
+    """The JAX kernel's block rule, kept so the engine gate is the same."""
+    for b in (2048, 1024, 512, 256, 128):
+        if n % b or b % (8 * sub):
+            continue
+        if b * (d * esize + qp * 4) + d * qp * esize <= _VMEM_STEP_BUDGET:
+            return b
+    return 0
+
+
+def fused_head_available(index, top_k: int = 10, sub: int = SUB) -> bool:
+    """Shape gate of ``tdr.ops.pallas_flat.fused_head_available``: a
+    full-vocab head (no tail to merge), bf16/f32 rows, aligned shapes and
+    at least 65,536 documents.  No environment variable takes part."""
+    if index.head_size < index.vocab_size:
+        return False
+    d, n = index.head_rows.shape
+    if index.head_rows.dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if d % 8 or n % (8 * sub) or n < 65536 or n // sub < top_k:
+        return False
+    return _pick_head_block(n, _LANES, d, index.head_rows.element_size(),
+                            sub) > 0
+
+
+def fused_head_blockmax_plain(W: torch.Tensor, head: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel: (Qp, D) x (D, N) in f32, + bias, max
+    over groups of 8 documents → (Qp, N/8) f32."""
+    s = W.float() @ head.float() + bias[None, :]
+    return s.view(s.shape[0], -1, SUB).amax(dim=-1)
+
+
+def fused_head_blockmax(W: torch.Tensor, head: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """Group-of-8 maxima of ``W · head + bias``, (Qp, N/8) f32: the CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if not head.is_cuda:
+        return fused_head_blockmax_plain(W, head, bias)
+    Qp, D = W.shape
+    D2, N = head.shape
+    if head.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_head: head dtype {head.dtype} not supported")
+    if W.dtype != head.dtype or bias.dtype != torch.float32:
+        raise ValueError("fused_head: W must have the head's dtype and bias f32")
+    if W.device != head.device or bias.device != head.device:
+        raise ValueError("fused_head: W, head and bias must share one device")
+    if D2 != D or tuple(bias.shape) != (N,):
+        raise ValueError(f"fused_head: shapes W {tuple(W.shape)}, head "
+                         f"{tuple(head.shape)}, bias {tuple(bias.shape)}")
+    if Qp % _Q_TILE or N % 128 or D % 8 or N // 128 > 65535:
+        raise ValueError(f"fused_head: needs Qp % 128 == 0, N % 128 == 0, "
+                         f"D % 8 == 0 (got Qp={Qp}, N={N}, D={D})")
+    for name, t in (("W", W), ("head", head), ("bias", bias)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_head: {name} must be contiguous and "
+                             f"16-byte aligned")
+    out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=head.device)
+    lib = cuda_build.lib()
+    fn = (lib.tdr_fused_head_bf16 if head.dtype == torch.bfloat16
+          else lib.tdr_fused_head_f32)
+    err = fn(W.data_ptr(), head.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             Qp, D, N, cuda_build.current_stream(head.device))
+    cuda_build.check(err, "fused_head")
+    cuda_build.launches["fused_head"] += 1
+    return out
+
+
+def query_weight_matrix(index, qids: torch.Tensor, qw: torch.Tensor):
+    """Scatter the active terms' weights into W (Q, D) f32 over head slots;
+    returns (W, slot (Q, T) int64, active (Q, T))."""
+    Q, T = qids.shape
+    D = index.head_rows.shape[0]
+    slot = index.head_slot[qids.clamp(0, index.vocab_size - 1).long()].long()
+    active = (slot >= 0) & (qw > 0)
+    q_idx = torch.arange(Q, device=qids.device)[:, None].expand(Q, T)
+    W = torch.zeros((Q, D), dtype=torch.float32, device=qids.device)
+    W.index_put_((q_idx.reshape(-1), torch.where(active, slot, 0).reshape(-1)),
+                 torch.where(active, qw, torch.zeros_like(qw)).reshape(-1),
+                 accumulate=True)
+    return W, slot, active
+
+
+def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
+                    top_k: int = 10, n_valid: Optional[int] = None,
+                    blockmax: Callable = fused_head_blockmax,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact head-score top-k of a full-vocab-head index without the (Q, N)
+    score matrix: (vals (Q, top_k) f32, rows (Q, top_k) int64), padded with
+    (-inf, 0).  ``blockmax`` computes phase 1; a caller may pass
+    ``fused_head_blockmax_plain`` to hold the kernel against its plain
+    version through the whole function."""
+    head = index.head_rows
+    D, N = head.shape
+    Q, T = qids.shape
+    dev = head.device
+    Qp = _round_up(max(Q, 1), _Q_TILE)
+    ng = N // SUB
+
+    W, slot, active = query_weight_matrix(index, qids, qw)
+    Wp = torch.zeros((Qp, D), dtype=head.dtype, device=dev)
+    Wp[:Q] = W.to(head.dtype)
+    limit = index.n_docs if n_valid is None else n_valid
+    bias = torch.where(torch.arange(N, device=dev) < limit,
+                       torch.zeros((), device=dev),
+                       torch.full((), NEG, device=dev)).float()
+
+    gmax = blockmax(Wp, head, bias)[:Q]            # (Q, ng)
+    k_g = min(top_k, ng)
+    _, gsel = fast_topk(gmax, k_g)
+    cols = (gsel[:, :, None] * SUB
+            + torch.arange(SUB, device=dev)).reshape(Q, k_g * SUB)
+
+    # exact rescore from the active terms: the effective weight is the
+    # SLOT-summed, head-dtype-rounded value the kernel contracted with
+    slot0 = torch.where(active, slot, 0)
+    q_idx = torch.arange(Q, device=dev)[:, None].expand(Q, T)
+    w_eff = W[q_idx, slot0].to(head.dtype).float()
+    w_eff = torch.where(active, w_eff, torch.zeros_like(w_eff))
+    # first-occurrence guard: terms sharing a slot contribute once
+    if T > 1:
+        tri = torch.ones((T, T), dtype=torch.bool, device=dev).tril(-1)
+        eq_prior = ((slot[:, :, None] == slot[:, None, :]) & tri
+                    & active[:, :, None] & active[:, None, :])
+        w_eff = torch.where(eq_prior.any(dim=2), torch.zeros_like(w_eff), w_eff)
+    rows_cand = head[slot0[:, :, None], cols[:, None, :]].float()   # (Q, T, C)
+    scores = torch.bmm(w_eff[:, None, :], rows_cand)[:, 0] + bias[cols]
+    vals, rows = sort_desc_by_value_then_index(scores, cols)
+    k_eff = min(top_k, k_g * SUB)
+    vals, rows = vals[:, :k_eff], rows[:, :k_eff]
+    dead = vals <= NEG / 2
+    vals = torch.where(dead, torch.full_like(vals, float("-inf")), vals)
+    rows = torch.where(dead, torch.zeros_like(rows), rows)
+    if k_eff < top_k:
+        vals = torch.nn.functional.pad(vals, (0, top_k - k_eff),
+                                       value=float("-inf"))
+        rows = torch.nn.functional.pad(rows, (0, top_k - k_eff))
+    return vals, rows

@@ -1,0 +1,283 @@
+"""Retrieval orchestration for the port: per-language model routing and
+query batching (``tdr/rank/router.py``).
+
+Seven independent per-language BM25 models with docid maps; queries are
+grouped by language, tokenized, padded to a bucketed batch size (1, 8,
+then ``query_batch``) and scored on the models' device.  Every batch is
+dispatched before any result is read; the results then come back in ONE
+device→host copy per ``retrieve``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple, Type
+
+import numpy as np
+import torch
+
+from tdr_torch.data.loaders import Corpus
+from tdr_torch.index.build import full_head_bytes
+from tdr_torch.models.sparse import BM25Model, SparseModel
+from tdr_torch.text.preprocess import Preprocessor
+from tdr_torch.text.vocab import build_vocab, encode_docs
+from tdr_torch.utils.config import BM25Config, IndexConfig
+from tdr_torch.utils.device import DeviceLike, resolve_device
+from tdr_torch.utils.trace import Tracer, log
+
+
+def build_language_models(
+    corpus: Corpus,
+    model_cls: Type[SparseModel] = BM25Model,
+    preprocessor: Optional[Preprocessor] = None,
+    bm25: BM25Config = BM25Config(),
+    index_cfg: IndexConfig = IndexConfig(),
+    max_query_terms: int = 64,
+    head_size: Optional[int] = None,
+    tracer: Optional[Tracer] = None,
+    use_native: bool = True,
+    device: DeviceLike = None,
+) -> Dict[str, SparseModel]:
+    """Partition the corpus by language, preprocess, and build one model per
+    language on ``device``, the total head budget waterfilled across them.
+
+    ``use_native=True`` encodes through the C++ tokenizer
+    (``tdr_torch.text.fast``) when it builds and the preprocessor is the
+    default "best" pipeline; otherwise the Python path runs."""
+    dev = resolve_device(device)
+    pp = preprocessor or Preprocessor("best")
+    tracer = tracer or Tracer("build_language_models")
+    by_lang: Dict[str, List[int]] = {}
+    for i, lang in enumerate(corpus.langs):
+        by_lang.setdefault(lang, []).append(i)
+
+    fast = False
+    if use_native and preprocessor is None:
+        from tdr_torch.text.fast import fast_available
+
+        fast = fast_available()
+
+    def _encode_one(lang, rows):
+        docids = [corpus.docids[i] for i in rows]
+        if fast:
+            from tdr_torch.text.fast import fast_encode_corpus
+
+            texts = [corpus.texts[i] for i in rows]
+            vocab, *coo = fast_encode_corpus(
+                texts, [lang] * len(rows), min_df=index_cfg.min_df)
+            coo = tuple(coo)
+        else:
+            toks = [pp(corpus.texts[i], lang) for i in rows]
+            vocab = build_vocab(toks, min_df=index_cfg.min_df)
+            coo = encode_docs(toks, vocab)
+        return lang, (vocab, coo, docids, len(rows))
+
+    # languages encode concurrently: the C++ tokenizer releases the GIL
+    to_encode = sorted(by_lang.items())
+    encoded: Dict[str, tuple] = {}
+    with tracer.span("encode:all", n_langs=len(to_encode)):
+        with ThreadPoolExecutor(max_workers=max(1, min(8, len(to_encode)))) as ex:
+            for lang, payload in ex.map(lambda a: _encode_one(*a), to_encode):
+                encoded[lang] = payload
+
+    stats = {lang: (full_head_bytes(vocab.size, n, index_cfg), float(n))
+             for lang, (vocab, _, _, n) in encoded.items()}
+    allocs = _waterfill_head_budget(index_cfg.head_budget_bytes, stats)
+
+    models: Dict[str, SparseModel] = {}
+    for lang, (vocab, coo, docids, n) in encoded.items():
+        lang_cfg = dataclasses.replace(index_cfg, head_budget_bytes=allocs[lang])
+        with tracer.span(f"build:{lang}", n_docs=n):
+            kwargs = dict(lang=lang, index_cfg=lang_cfg,
+                          max_query_terms=max_query_terms, head_size=head_size,
+                          device=dev)
+            if model_cls is BM25Model:
+                kwargs["bm25"] = bm25
+            models[lang] = model_cls.from_coo(vocab, coo, docids, **kwargs)
+        log.info("built %s model for '%s': %d docs, vocab %d, head %d, tail_pmax %d",
+                 model_cls.__name__, lang, n, models[lang].vocab.size,
+                 models[lang].index.head_size, models[lang].index.tail_pmax)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return models
+
+
+# Copied from tdr/rank/router.py (verbatim).
+def _waterfill_head_budget(
+    total_bytes: int, stats: Dict[str, Tuple[int, float]],
+    floor_bytes: int = 64 << 20,
+) -> Dict[str, int]:
+    """Split ``total_bytes`` of head budget: every language first gets
+    ``min(need, floor_bytes)`` (floors scale down together if even they
+    exceed the budget), then the remainder is waterfilled — shares
+    proportional to weight (doc count), capped at each language's ``need``
+    (full-vocab coverage), surplus re-poured over the still-hungry
+    languages until spent.
+
+    CONSERVES the budget: ``sum(allocs) <= total_bytes`` always (the
+    pre-fix applied the floor AFTER allocation, so many small languages
+    could overcommit HBM by up to n_langs * floor — the hole the split
+    exists to close).
+
+    ``stats``: {lang: (need_bytes, weight)} → {lang: alloc_bytes}."""
+    budget = int(total_bytes)
+    # phase 0: reserve the floors out of the total (a floor never exceeds
+    # what the language can use)
+    base = {lang: min(need, floor_bytes) for lang, (need, _) in stats.items()}
+    base_sum = sum(base.values())
+    if budget <= 0:
+        return {lang: 0 for lang in stats}
+    if base_sum > budget:
+        scale = budget / base_sum
+        return {lang: int(b * scale) for lang, b in base.items()}
+    budget -= base_sum
+    alloc = dict(base)
+    hungry = {lang: (need - base[lang], w)
+              for lang, (need, w) in stats.items() if need > base[lang]}
+    while hungry and budget > 0:
+        wsum = sum(w for _, w in hungry.values())
+        if wsum <= 0:
+            break
+        saturated = {
+            lang: need for lang, (need, w) in hungry.items()
+            if need <= int(budget * w / wsum)
+        }
+        if not saturated:
+            for lang, (_, w) in hungry.items():
+                alloc[lang] += int(budget * w / wsum)
+            break
+        for lang, need in saturated.items():
+            alloc[lang] += need
+            budget -= need
+            del hungry[lang]
+    return alloc
+
+
+def _gather_results(vals_list: List[torch.Tensor], rows_list: List[torch.Tensor]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack the per-batch (B, k) results on the device and bring them to
+    the host in ONE copy: scores travel as their int32 bit patterns beside
+    the int32 rows, so one tensor holds both."""
+    packed = torch.stack([torch.stack(vals_list).view(torch.int32),
+                          torch.stack(rows_list).to(torch.int32)])
+    host = packed.cpu().numpy()
+    return host[0].view(np.float32), host[1]
+
+
+@dataclass
+class LanguageRouter:
+    """Routes queries to per-language models and merges results in input
+    order."""
+
+    models: Dict[str, SparseModel]
+    preprocessor: Preprocessor = field(default_factory=lambda: Preprocessor("best"))
+    query_batch: int = 128
+    default_lang: str = "en"
+    detect_missing_lang: bool = True
+    use_native: bool = True            # C++ tokenizer for query preprocessing
+    # small-batch buckets: a chunk pads to the smallest bucket that fits,
+    # then to query_batch; () pads every chunk to query_batch
+    query_buckets: Tuple[int, ...] = (1, 8)
+
+    def _tokenize(self, queries: Sequence[str], q_idx: Sequence[int],
+                  lang: str) -> List[List[str]]:
+        if self.use_native and self.preprocessor.spec.name == "best":
+            from tdr_torch.text.fast import fast_available
+
+            if fast_available():
+                from tdr_torch.text.fast import fast_tokenize_texts
+
+                return fast_tokenize_texts([queries[i] for i in q_idx], lang)
+        return [self.preprocessor(queries[i], lang) for i in q_idx]
+
+    def _group(self, langs: Optional[Sequence[str]],
+               queries: Sequence[str]) -> Dict[str, List[int]]:
+        groups: Dict[str, List[int]] = {}
+        for i in range(len(queries)):
+            lang = langs[i] if langs is not None else None
+            if lang is None or lang == "" or lang not in self.models:
+                if self.detect_missing_lang:
+                    from tdr_torch.text.langid import detect_language
+
+                    lang = detect_language(queries[i], default=self.default_lang)
+                if lang not in self.models:
+                    lang = self.default_lang
+            groups.setdefault(lang, []).append(i)
+        return groups
+
+    def _pad_target(self, n: int) -> int:
+        """Smallest bucket that fits ``n``, else the full batch."""
+        for b in sorted(self.query_buckets):
+            if n <= b < self.query_batch:
+                return b
+        return self.query_batch
+
+    def _batches_resolved(self, queries, langs, k):
+        """Dispatch every batch, then resolve all of them with one
+        device→host copy: [(model, sel, vals (n, k), rows (n, k))]."""
+        pending = []
+        for lang, q_idx in self._group(langs, queries).items():
+            model = self.models[lang]
+            toks = self._tokenize(queries, q_idx, lang)
+            for s in range(0, len(q_idx), self.query_batch):
+                chunk = toks[s:s + self.query_batch]
+                sel = q_idx[s:s + self.query_batch]
+                vals, rows, n = model.topk_tokens_async(
+                    chunk, k, pad_to=self._pad_target(len(chunk)))
+                pending.append((model, sel, vals, rows, n))
+        if not pending:
+            return []
+        # batches of different bucket sizes pad to the largest on the device
+        # so everything stacks into the one copy
+        b_max = max(p[2].shape[0] for p in pending)
+        vals_l, rows_l = [], []
+        for _, _, vals, rows, _ in pending:
+            b = vals.shape[0]
+            if b < b_max:
+                vals = torch.nn.functional.pad(vals, (0, 0, 0, b_max - b),
+                                               value=float("-inf"))
+                rows = torch.nn.functional.pad(rows, (0, 0, 0, b_max - b))
+            vals_l.append(vals)
+            rows_l.append(rows)
+        vals_all, rows_all = _gather_results(vals_l, rows_l)
+        return [(model, sel, vals_all[i][:n], rows_all[i][:n])
+                for i, (model, sel, _, _, n) in enumerate(pending)]
+
+    @staticmethod
+    def _map_docids(model, vals: np.ndarray, rows: np.ndarray) -> List[List[str]]:
+        """(n, k) rows → docid lists via one object-array gather; -inf pad
+        entries are dropped."""
+        arr = getattr(model, "_docid_arr", None)
+        if arr is None or len(arr) != len(model.docids):
+            arr = np.asarray(model.docids, dtype=object)
+            model._docid_arr = arr
+        names = arr[np.clip(rows, 0, len(arr) - 1)]
+        finite = np.isfinite(vals)
+        if bool(finite.all()):
+            return [row.tolist() for row in names]
+        return [names[j][finite[j]].tolist() for j in range(names.shape[0])]
+
+    def retrieve(self, queries: Sequence[str],
+                 langs: Optional[Sequence[str]] = None,
+                 k: int = 10) -> List[List[str]]:
+        """Top-k docids per query, in input order.  ``langs=None`` (or
+        unknown codes) routes by detected language."""
+        results: List[Optional[List[str]]] = [None] * len(queries)
+        for model, sel, vals, rows in self._batches_resolved(queries, langs, k):
+            for j, docs in zip(sel, self._map_docids(model, vals, rows)):
+                results[j] = docs
+        return [r if r is not None else [] for r in results]
+
+    def retrieve_with_scores(self, queries: Sequence[str],
+                             langs: Optional[Sequence[str]] = None,
+                             k: int = 10) -> Tuple[List[List[str]], np.ndarray]:
+        docid_out: List[Optional[List[str]]] = [None] * len(queries)
+        score_out = np.zeros((len(queries), k), np.float32)
+        for model, sel, vals, rows in self._batches_resolved(queries, langs, k):
+            docs_rows = self._map_docids(model, vals, rows)
+            for i, j in enumerate(sel):
+                docid_out[j] = docs_rows[i]
+                score_out[j] = vals[i]
+        return [r if r is not None else [] for r in docid_out], score_out
