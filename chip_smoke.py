@@ -10,16 +10,31 @@ Phases, in order (any failure exits non-zero and prints no result line):
    ``tdr_torch/csrc`` (one nvcc per source, in parallel);
 2. the synthetic corpus (``hard=True``, ``seed=42``) and one BM25 index per
    language with a 4 GiB total head budget;
-3. each kernel against its plain torch version on the card, at the shapes
+3. K1 and K2 against their plain torch versions on the card, at the shapes
    of the index just built (fused_head on en; tail_compact on es at Q=256
    and Q=1), with times: kernel, plain, library yardstick, bound;
-4. the main path: ``LanguageRouter.retrieve`` over all queries, launch
-   counts set to 0 just before one pass and read just after, then timed
-   passes; queries/s and hard recall@10;
+3b. K3 (fused_flat) against its plain version at the dense bench's shape
+   (262,144 random unit embeddings, D=256, Q=256): {bf16, int8, f32} x
+   {ip, l2} and one n_valid < N case;
+3c. K4 (head_scores) against its plain version on the en and de heads at
+   Q = 1, 8 and 256, with a query of more than 16 head terms; its launch
+   count comes from one Q=256 call (no main path drives it);
+4. the sparse main path: ``LanguageRouter.retrieve`` over all queries,
+   launch counts set to 0 just before one pass and read just after, then
+   timed passes; queries/s and hard recall@10;
 5. single queries and a query of 8 (the small-batch buckets);
 6. a reference check: each language's first batch through the fused path
-   against the plain scatter path (full score matrix + stable top-k).
+   against the plain scatter path (full score matrix + stable top-k);
+7. the dense path: ``DenseModel.build`` over the same corpus with the
+   ``DenseConfig()`` encoder from ``init_encoder(seed=0)``, then
+   ``DenseModel.retrieve`` over all queries (counts set to 0 just before
+   one pass, read just after), timed passes (end to end and search only),
+   recall@10 (untrained encoder: reported, no floor), K3 against its plain
+   version at the pass's own shape, the fused engine against the plain one
+   on the first 256 queries, and IVF (nlist 512, nprobe 16) on the bench
+   embeddings.
 
+Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``tdr``.
 """
@@ -27,6 +42,7 @@ The second-to-last line is the ``{"kernels": [...]}`` JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -38,9 +54,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12            # dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12              # f32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12             # dense int8 tensor cores
 RECALL_FLOOR = 0.75
 N_DOCS = 268_022                    # the full corpus: never cut
 HEAD_BUDGET = 1 << 32               # 4 GiB of dense head, all languages
+DEVICE = "cuda"                     # every tensor of the run lives on the card
 
 
 def fail(msg: str) -> None:
@@ -245,17 +263,299 @@ def reference_check(models, queries, langs):
             f"path ({int(diff.sum())} rank slots inside near-ties)")
 
 
-def profile_pass(router, queries, trace_out) -> None:
-    """One retrieve under torch.profiler: device time by kernel name, and
-    the share of the pass's wall time the device was busy (union of kernel
-    intervals).  With ``trace_out`` the Chrome trace is written there."""
+def bench_embeddings():
+    """The dense bench's data (``bench.py:800-807``): 262,144 random unit
+    embeddings of width 256 and 256 random queries, from numpy seeds."""
+    import numpy as np
+
+    emb = np.random.RandomState(0).randn(262_144, 256).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = np.random.RandomState(7).randn(256, 256).astype(np.float32)
+    return emb, q
+
+
+def flat_index_on_card(emb, metric, dtype):
+    """A flat index of the port on the card; f32 storage (which the builder
+    does not offer) gets the builder's padding and ‖d‖² as well."""
+    import torch
+    from tdr_torch.models.dense import FlatIndex, build_flat_index
+
+    if dtype != "float32":
+        return build_flat_index(emb, metric=metric, dtype=dtype, device=DEVICE)
+    b = build_flat_index(emb, metric=metric, device=DEVICE)
+    e = torch.zeros(b.embeddings.shape, dtype=torch.float32, device=DEVICE)
+    e[:emb.shape[0]] = torch.as_tensor(emb, device=DEVICE)
+    return FlatIndex(embeddings=e, doc_sq=b.doc_sq, n_docs=b.n_docs,
+                     metric=metric)
+
+
+def check_fused_flat(index, q, label, n_valid=None, reps=20):
+    """K3 against its plain version at one batch: group maxima within rtol
+    1e-5 (atol 1e-5: scores near 0 sum in another order), and the final
+    (vals, rows) of ``fused_flat_topk`` equal to the plain engine's
+    (product + top-k) except swaps inside near-ties.  Returns its record."""
+    import torch
+    from tdr_torch.models.dense import flat_search
+    from tdr_torch.ops import fused_flat as ff
+
+    emb = index.embeddings
+    N, D = emb.shape
+    Q = q.shape[0]
+    args, _, bias = ff.fused_flat_inputs(emb, q, index.metric, index.n_docs,
+                                         index.doc_sq, index.doc_scale,
+                                         n_valid)
+    Qp, alpha = args[0].shape[0], args[3]
+    kern = ff.fused_flat_blockmax(*args)
+    plain = ff.fused_flat_blockmax_plain(*args)
+    torch.cuda.synchronize()
+    err = (kern - plain).abs()
+    if not bool((err <= 1e-5 * plain.abs() + 1e-5).all()):
+        fail(f"fused_flat {label}: group maxima differ beyond rtol 1e-5 "
+             f"(max abs err {err.max().item():.3e})")
+    max_abs_err = float(err[plain > ff.NEG / 2].max().item())
+    kv, kr = ff.fused_flat_topk(emb, q, top_k=10, metric=index.metric,
+                                n_docs=index.n_docs, doc_sq=index.doc_sq,
+                                doc_scale=index.doc_scale, n_valid=n_valid)
+    # n_valid overrides n_docs, so the plain engine sees n_docs = n_valid
+    plain_ix = (index if n_valid is None
+                else dataclasses.replace(index, n_docs=n_valid))
+    pv, pr = flat_search(plain_ix, q, 10, engine="plain")
+    kv, kr, pv, pr = (t.cpu().numpy() for t in (kv, kr, pv, pr))
+    for i in range(Q):
+        if not same_ranking(kr[i], kv[i], pr[i], pv[i], rtol=1e-5, atol=1e-5):
+            fail(f"fused_flat {label}: query {i} ranks differ from the plain "
+                 f"engine")
+    if n_valid is not None and (kr >= n_valid).any():
+        fail(f"fused_flat {label}: a row past n_valid={n_valid} surfaced")
+    ms = time_ms(lambda: ff.fused_flat_blockmax(*args), reps)
+    plain_ms = time_ms(lambda: ff.fused_flat_blockmax_plain(*args), 3,
+                       warmup=1)
+    if emb.dtype == torch.int8:
+        q8, _, _, _, dscale, qscale = args
+        lib_fn = lambda: (alpha * (torch._int_mm(q8, emb.T).float()  # noqa: E731
+                                   * dscale * qscale[:, None])
+                          + bias).view(Qp, -1, 8).amax(-1)
+        peak = PEAK_INT8_OPS
+    elif emb.dtype == torch.bfloat16:
+        lib_fn = lambda: (alpha * torch.mm(args[0], emb.T,  # noqa: E731
+                                           out_dtype=torch.float32)
+                          + bias).view(Qp, -1, 8).amax(-1)
+        peak = PEAK_BF16_FLOPS
+    else:
+        lib_fn = lambda: (alpha * (args[0] @ emb.T)  # noqa: E731
+                          + bias).view(Qp, -1, 8).amax(-1)
+        peak = PEAK_F32_FLOPS
+    library_ms = time_ms(lib_fn, reps)
+    # the function's work is Q queries; the pad rows up to Qp are not
+    esize = emb.element_size()
+    n_bytes = (N * D * esize + Q * D * esize + N * 4 + Q * (N // 8) * 4
+               + (N * 4 + Q * 4 if emb.dtype == torch.int8 else 0))
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * Q * D * N / peak * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    say(f"[k3 fused_flat {label}] emb {tuple(emb.shape)} {emb.dtype}, "
+        f"metric {index.metric}, Q={Q} (Qp={Qp}): group maxima within rtol "
+        f"1e-5 (max abs err {max_abs_err:.3e}), final rows equal but for "
+        f"near-ties; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; "
+        f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms)")
+    return dict(name="fused_flat", route="cuda",
+                source="tdr_torch/csrc/fused_flat.cu",
+                replaces="tdr/ops/pallas_flat.py:123", launches=0,
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def overflow_batch(index, qids, qw):
+    """Row 0 becomes a query of 20 active head terms (over the cap of 16)."""
+    import torch
+
+    heads = torch.nonzero(index.head_slot >= 0)[:20, 0].to(qids.dtype)
+    qids, qw = qids.clone(), qw.clone()
+    qids[0] = 0
+    qw[0] = 0.0
+    qids[0, :heads.numel()] = heads
+    qw[0, :heads.numel()] = 1.0
+    return qids, qw
+
+
+def check_head_scores(index, qids, qw, label, reps=10):
+    """K4 against its plain version at one batch (bit for bit), and the
+    whole entry point against the capped row gather (rows under the cap,
+    rtol 1e-5) and the full-head product (tests/test_pallas.py's bounds).
+    Returns its record."""
+    import torch
+    from tdr_torch.ops import head_scores as hs
+    from tdr_torch.ops.score import _head_scores_capped, _head_scores_matmul
+
+    rows = index.head_rows
+    D, N = rows.shape
+    Q, T = qids.shape
+    slots, w, n_active = hs._prep_terms(index, qids, qw)
+    TH = min(hs.DEFAULT_MAX_HEAD_TERMS, T)
+    args = (rows, slots[:, :TH].contiguous(), w[:, :TH].contiguous(),
+            n_active)
+    kern = hs.head_scores_rows(*args)
+    plain = hs.head_scores_rows_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(kern.view(torch.int32), plain.view(torch.int32)):
+        fail(f"head_scores {label}: kernel differs from its plain version "
+             f"(max abs err {(kern - plain).abs().max().item():.3e})")
+    qc = qids.clamp(0, index.vocab_size - 1)
+    full = hs.head_scores(index, qids, qw)
+    over = n_active > TH
+    for s in range(0, Q, 32):
+        capped, _ = _head_scores_capped(index, qc[s:s + 32], qw[s:s + 32], TH)
+        keep = ~over[s:s + 32]
+        if not torch.allclose(full[s:s + 32][keep], capped[keep], rtol=1e-5,
+                              atol=1e-6):
+            fail(f"head_scores {label}: differs from the capped gather")
+    ref = _head_scores_matmul(index, qc, qw)
+    tol = (dict(rtol=2e-2, atol=1e-2) if rows.dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-5))
+    if not torch.allclose(full, ref, **tol):
+        fail(f"head_scores {label}: differs from the full-head product")
+    ms = time_ms(lambda: hs.head_scores_rows(*args), reps)
+    plain_ms = time_ms(lambda: hs.head_scores_rows_plain(*args), 3, warmup=1)
+    library_ms = time_ms(lambda: _head_scores_matmul(index, qc, qw), reps)
+    live = torch.arange(TH, device=rows.device)[None, :] < n_active[:, None]
+    terms = int(live.sum().item())
+    # each distinct head row is read once, however many queries share it
+    distinct = int(torch.unique(args[1][live]).numel())
+    n_bytes = (distinct * N * rows.element_size() + Q * N * 4
+               + Q * TH * 8 + Q * 4)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * terms * N / PEAK_F32_FLOPS * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    say(f"[k4 head_scores {label}] head {tuple(rows.shape)} {rows.dtype}, "
+        f"Q={Q}, {terms} active terms under the cap ({distinct} distinct "
+        f"rows), {int(over.sum())} "
+        f"overflowed: bit-exact, capped gather within rtol 1e-5, full "
+        f"product within {tol}; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by})")
+    return dict(name="head_scores", route="cuda",
+                source="tdr_torch/csrc/head_scores.cu",
+                replaces="tdr/ops/pallas_score.py:110", launches=0,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
+    """Phase 7: the dense path; returns K3's record at the pass's shape."""
+    import numpy as np
+    import torch
+    from tdr_torch import native
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.models.dense import (DenseModel, build_ivf_index,
+                                        flat_search, ivf_search)
+    from tdr_torch.models.encoder import init_encoder
+    from tdr_torch.ops import cuda_build
+    from tdr_torch.ops.fused_flat import fused_flat_available
+    from tdr_torch.utils.config import DenseConfig
+
+    # the dense times include hashing: hold them to the native hasher, not
+    # the pure-Python oracle that encode_batch takes without it
+    if not native.available():
+        fail("the native hasher (tdr_torch/native) did not build or load")
+    cfg = DenseConfig()
+    model = init_encoder(cfg, seed=0, device=DEVICE)
+    t0 = time.perf_counter()
+    dense = DenseModel.build(model, cfg, corpus.texts, corpus.docids,
+                             batch=256)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emb = dense.flat.embeddings
+    say(f"[dense] encoder dim {cfg.dim} depth {cfg.depth} heads {cfg.heads} "
+        f"vocab {cfg.vocab_size} max_len {cfg.max_len} {cfg.dtype}; native "
+        f"hasher; build "
+        f"over {len(corpus.texts)} docs: {build_s:.1f} s, flat index "
+        f"{tuple(emb.shape)} {emb.dtype} "
+        f"({emb.numel() * emb.element_size() / 1e6:.1f} MB)")
+    if not fused_flat_available(emb):
+        fail("the dense index does not pass the fused engine's gate")
+
+    nq = len(queries.queries)
+    cuda_build.reset_launches()
+    results = dense.retrieve(queries.queries, k=10)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    say(f"[dense] launches in one {nq}-query retrieve: {counts}")
+    if counts["fused_flat"] == 0:
+        fail("fused_flat never launched on the dense path")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        results = dense.retrieve(queries.queries, k=10)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    q_enc = dense.encode_queries(queries.queries)
+    search = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        flat_search(dense.flat, q_enc, 10)
+        torch.cuda.synchronize()
+        search.append(time.perf_counter() - t0)
+    smed = statistics.median(search)
+    if profile:
+        profile_pass("dense", lambda: dense.retrieve(queries.queries, k=10))
+    recall = recall_at_k(results, queries.positive_docs, 10)
+    if any(len(r) != 10 for r in results):
+        fail("a dense query returned fewer than 10 docs")
+    say(f"[dense] retrieve (encode + search): median {med:.4f} s of "
+        f"{[round(t, 4) for t in times]} -> {nq / med:.1f} queries/s; search "
+        f"only: median {smed * 1e3:.3f} ms of "
+        f"{[round(t * 1e3, 3) for t in search]} -> {nq / smed:.1f} queries/s; "
+        f"recall@10 {recall:.4f} (untrained encoder: reported, no floor)")
+
+    rec = check_fused_flat(dense.flat, q_enc, "dense pass", reps=10)
+    rec["launches"] = counts["fused_flat"]
+
+    # reference: the fused engine against the plain product + top-k
+    fv, fr = flat_search(dense.flat, q_enc[:256], 10, engine="fused")
+    pv, pr = flat_search(dense.flat, q_enc[:256], 10, engine="plain")
+    fv, fr, pv, pr = (t.cpu().numpy() for t in (fv, fr, pv, pr))
+    if not np.isfinite(fv).all():
+        fail("dense reference: non-finite scores")
+    for i in range(fv.shape[0]):
+        if not same_ranking(fr[i], fv[i], pr[i], pv[i], rtol=1e-5, atol=1e-5):
+            fail(f"dense reference: query {i} differs between engines")
+    say(f"[dense reference] 256 queries: fused engine == plain engine "
+        f"({int((fr != pr).sum())} rank slots inside near-ties)")
+
+    # IVF on the bench embeddings (bench.py:896-900)
+    t0 = time.perf_counter()
+    ivf = build_ivf_index(bench_emb, nlist=512, device=DEVICE)
+    torch.cuda.synchronize()
+    ivf_build = time.perf_counter() - t0
+    bq = torch.as_tensor(bench_q, device=DEVICE)
+    ivf_ms = time_ms(lambda: ivf_search(ivf, bq, 10, nprobe=16), 5, warmup=1)
+    _, r_ivf = ivf_search(ivf, bq, 10, nprobe=16)
+    exact = flat_index_on_card(bench_emb, "ip", "float32")
+    _, r_ex = flat_search(exact, bq, 10, engine="plain")
+    r_ivf, r_ex = r_ivf.cpu().numpy(), r_ex.cpu().numpy()
+    overlap = float(np.mean([len(set(a) & set(b)) / 10.0
+                             for a, b in zip(r_ivf, r_ex)]))
+    say(f"[dense ivf] nlist 512 (bucket_pad {ivf.bucket_pad}), build "
+        f"{ivf_build:.1f} s; nprobe 16: {ivf_ms:.3f} ms per {bq.shape[0]} "
+        f"queries -> {bq.shape[0] / ivf_ms * 1e3:.1f} queries/s, top-10 "
+        f"overlap with exact "
+        f"{overlap:.4f}")
+    return rec
+
+
+def profile_pass(label, run, trace_out=None) -> None:
+    """One pass (``run()``) under torch.profiler: device time by kernel
+    name, and the share of the pass's wall time the device was busy (union
+    of kernel intervals).  With ``trace_out`` the Chrome trace is written
+    there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        router.retrieve(queries.queries, queries.langs, k=10)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -270,7 +570,7 @@ def profile_pass(router, queries, trace_out) -> None:
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
-    say(f"[profile] pass wall {wall * 1e3:.3f} ms, device busy "
+    say(f"[profile {label}] pass wall {wall * 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}%), "
         f"{len(spans)} device events")
     rows = {}
@@ -281,7 +581,14 @@ def profile_pass(router, queries, trace_out) -> None:
         if t > 0 and e.device_type.name == "CUDA":
             rows[e.key] = (t, e.count)
     for key, (t, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:15]:
-        say(f"[profile]   {t / 1e3:10.3f} ms  x{n:<5d} {key[:90]}")
+        say(f"[profile {label}]   {t / 1e3:10.3f} ms  x{n:<5d} {key[:90]}")
+    # the same device time by the torch operator that launched it
+    ops = [(e.self_device_time_total, e.count, e.key)
+           for e in prof.key_averages()
+           if e.device_type.name == "CPU"
+           and getattr(e, "self_device_time_total", 0) > 0]
+    for t, n, key in sorted(ops, reverse=True)[:12]:
+        say(f"[profile {label} op] {t / 1e3:10.3f} ms  x{n:<5d} {key}")
     if trace_out:
         os.makedirs(os.path.dirname(os.path.abspath(trace_out)), exist_ok=True)
         prof.export_chrome_trace(trace_out)
@@ -292,10 +599,12 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--reps", type=int, default=5, help="timed passes")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more pass with torch.profiler: device "
-                         "time by kernel and the device's busy share")
+                    help="trace one more sparse and one more dense pass with "
+                         "torch.profiler: device time by kernel and the "
+                         "device's busy share")
     ap.add_argument("--trace-out", default=None,
-                    help="with --profile: write the Chrome trace to this file")
+                    help="with --profile: write the sparse pass's Chrome "
+                         "trace to this file")
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "tdr_torch")):
@@ -340,7 +649,7 @@ def main() -> None:
     t0 = time.perf_counter()
     models = build_language_models(
         corpus, index_cfg=IndexConfig(head_budget_bytes=HEAD_BUDGET),
-        device="cuda")
+        device=DEVICE)
     say(f"index build: {time.perf_counter() - t0:.1f} s")
     for lang, m in sorted(models.items()):
         ix = m.index
@@ -374,12 +683,51 @@ def main() -> None:
     qids, qw = batch(k1_lang, 1)
     check_tail_compact(models[k1_lang].index, qids, qw, "Q=1")
 
+    # -- phase 3b: K3 at the dense bench's shape -----------------------------
+    bench_emb, bench_q = bench_embeddings()
+    bq = torch.as_tensor(bench_q, device=DEVICE)
+    for dtype in ("bfloat16", "int8", "float32"):
+        for metric in ("ip", "l2"):
+            index = flat_index_on_card(bench_emb, metric, dtype)
+            check_fused_flat(index, bq, f"{dtype} {metric}")
+            if dtype == "bfloat16" and metric == "ip":
+                check_fused_flat(index, bq, "bfloat16 ip n_valid=100000",
+                                 n_valid=100_000)
+            del index
+
+    # -- phase 3c: K4 on the en and de heads ---------------------------------
+    head_langs = [l for l in ("en", "de") if l in models]
+    cuda_build.reset_launches()
+    from tdr_torch.ops.head_scores import head_scores
+
+    qids, qw = overflow_batch(models[head_langs[0]].index,
+                              *batch(head_langs[0], 256))
+    head_scores(models[head_langs[0]].index, qids, qw)
+    torch.cuda.synchronize()
+    k4_launches = cuda_build.launches["head_scores"]
+    if k4_launches == 0:
+        fail("head_scores never launched in its own pass")
+    rec_k4 = None
+    for lang in head_langs:
+        for n in (1, 8, 256):
+            qids, qw = batch(lang, n)
+            if n > 1:
+                qids, qw = overflow_batch(models[lang].index, qids, qw)
+            rec = check_head_scores(models[lang].index, qids, qw,
+                                    f"{lang} Q={n}")
+            if lang == head_langs[0] and n == 256:
+                rec_k4 = rec
+    rec_k4["launches"] = k4_launches
+
     # -- phase 4: the main path ----------------------------------------------
     cuda_build.reset_launches()
     router.retrieve(queries.queries, queries.langs, k=10)
     torch.cuda.synchronize()
     counts = dict(cuda_build.launches)
     say(f"launches in one {args.queries}-query pass: {counts}")
+    missing = [k for k in ("tail_compact", "fused_head") if counts[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the sparse path: {missing}")
     times = []
     for _ in range(args.reps):
         t0 = time.perf_counter()
@@ -397,7 +745,8 @@ def main() -> None:
         fail("a query returned fewer than 10 docs")
 
     if args.profile:
-        profile_pass(router, queries, args.trace_out)
+        profile_pass("sparse", lambda: router.retrieve(
+            queries.queries, queries.langs, k=10), args.trace_out)
 
     # -- phase 5: the small-batch buckets ------------------------------------
     full_docs, full_scores = router.retrieve_with_scores(
@@ -417,14 +766,15 @@ def main() -> None:
 
     # -- phase 6: reference check --------------------------------------------
     reference_check(models, queries.queries, queries.langs)
-
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
     rec_k1["launches"] = counts["tail_compact"]
     rec_k2["launches"] = counts["fused_head"]
+
+    # -- phase 7: the dense path ---------------------------------------------
+    rec_k3 = dense_phase(corpus, queries, bench_emb, bench_q, args.reps,
+                         args.profile)
+
     say(f"total {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [rec_k1, rec_k2]}))
+    say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k3, rec_k4]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -24,11 +24,13 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
-SOURCES = ("tail_compact.cu", "fused_head.cu")
+SOURCES = ("tail_compact.cu", "fused_head.cu", "fused_flat.cu",
+           "head_scores.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0}
+launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0,
+                            "fused_flat": 0, "head_scores": 0}
 build_log: str = ""
 build_seconds: Optional[float] = None
 
@@ -37,10 +39,16 @@ _lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "tdr_tail_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tdr_fused_head_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_head_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tdr_fused_flat_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "tdr_fused_flat_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "tdr_fused_flat_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "tdr_head_scores_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tdr_head_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
