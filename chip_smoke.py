@@ -11,11 +11,17 @@ Phases, in order (any failure exits non-zero and prints no result line):
 2. the synthetic corpus (``hard=True``, ``seed=42``) and one BM25 index per
    language with a 4 GiB total head budget;
 3. K1 and K2 against their plain torch versions on the card, at the shapes
-   of the index just built (fused_head on en; tail_compact on es at Q=256
-   and Q=1), with times: kernel, plain, library yardstick, bound;
+   of the index just built, with times: kernel, plain, library yardstick,
+   bound.  fused_head on en: the first batch of 256 queries, the last
+   (partial) batch, a batch with no head term (n_active = 0) and a batch
+   of 16 distinct slots per query covering every head row (n_active = D),
+   and a head slice of 131,200 documents (the last tile half empty);
+   tail_compact on es at Q=256 and Q=1;
 3b. K3 (fused_flat) against its plain version at the dense bench's shape
    (262,144 random unit embeddings, D=256, Q=256): {bf16, int8, f32} x
-   {ip, l2} and one n_valid < N case;
+   {ip, l2} and one n_valid < N case; then 64 more rows (the last
+   document tile ragged) in bf16 and int8, and D=768 bf16 (65,664 rows:
+   too deep for the resident query slab, so the query tile streams);
 3c. K4 (head_scores) against its plain version on the en and de heads at
    Q = 1, 8 and 256, with a query of more than 16 head terms; its launch
    count comes from one Q=256 call (no main path drives it);
@@ -130,8 +136,49 @@ def check_tail_compact(index, qids, qw, label):
                 bound_by="bytes", library_ms=None)
 
 
-def check_fused_head(index, qids, qw):
-    """K2 against its plain version at one batch; returns its record."""
+def k2_operands(index, qids, qw, Qp):
+    """K2's operands for one batch: (rows, n_active, Wc) from the batch's
+    active terms, through the path's own functions."""
+    from tdr_torch.ops import fused_head as fh
+
+    W, slot, active = fh.query_weight_matrix(index, qids, qw)
+    return fh.compact_active_rows(W, slot, active, Qp, index.head_rows.dtype)
+
+
+def cover_batch(index, n=256):
+    """(index', qids, qw): a batch of n queries of 16 head terms each, query
+    q taking the terms of slots 16q .. 16q + 15 (mod D), so together they
+    use every head row (n_active = D).  A full-vocab head leaves the slots
+    of terms that no document holds unmapped; index' is the index with its
+    unmapped terms given those slots in order (their head rows are zero),
+    so every slot has a term."""
+    import torch
+
+    hs = index.head_slot.clone()
+    D = index.head_rows.shape[0]
+    free_terms = torch.nonzero(hs < 0)[:, 0]
+    taken = torch.zeros(D, dtype=torch.bool, device=hs.device)
+    taken[hs[hs >= 0].long()] = True
+    free_slots = torch.nonzero(~taken)[:, 0]
+    k = min(free_terms.numel(), free_slots.numel())
+    hs[free_terms[:k]] = free_slots[:k].to(hs.dtype)
+    index = dataclasses.replace(index, head_slot=hs)
+    term_of = torch.full((D,), -1, dtype=torch.long, device=hs.device)
+    mapped = torch.nonzero(hs >= 0)[:, 0]
+    term_of[hs[mapped].long()] = mapped
+    slots = (torch.arange(n * 16, device=hs.device) % D).view(n, 16)
+    terms = term_of[slots]
+    qids = terms.clamp(min=0).to(torch.int32)
+    qw = (terms >= 0).float() * ((slots % 5) + 1).float() / 2
+    return index, qids, qw
+
+
+def check_fused_head(index, qids, qw, label, want_active=None, reps=10):
+    """K2 against its plain version at one batch: group maxima within rtol
+    1e-5 and the final (vals, rows) of ``fused_head_topk`` equal; fails
+    unless n_active is ``want_active`` where that is given.  Returns its
+    record; ``bound_ms`` is the active-row bound (each distinct row read
+    once), the whole-head bound is printed beside it."""
     import torch
     from tdr_torch.ops import fused_head as fh
 
@@ -139,29 +186,34 @@ def check_fused_head(index, qids, qw):
     D, N = head.shape
     Q = qids.shape[0]
     Qp = fh._round_up(Q, 128)
-    W, _, _ = fh.query_weight_matrix(index, qids, qw)
-    Wp = torch.zeros((Qp, D), dtype=head.dtype, device=head.device)
-    Wp[:Q] = W.to(head.dtype)
+    rows, n_active, Wc = k2_operands(index, qids, qw, Qp)
+    n_act = int(n_active.item())
+    if want_active is not None and n_act != want_active:
+        fail(f"fused_head {label}: n_active {n_act}, expected {want_active}")
     bias = torch.where(torch.arange(N, device=head.device) < index.n_docs,
                        0.0, fh.NEG).float()
-    kern = fh.fused_head_blockmax(Wp, head, bias)
-    plain = fh.fused_head_blockmax_plain(Wp, head, bias)
+    args = (Wc, head, rows, n_active, bias)
+    kern = fh.fused_head_blockmax(*args)
+    plain = fh.fused_head_blockmax_plain(*args)
     torch.cuda.synchronize()
     err = (kern - plain).abs()
     tol = 1e-5 * plain.abs() + 1e-6
     if not bool((err <= tol).all()):
-        fail(f"fused_head: group maxima differ beyond rtol 1e-5 "
+        fail(f"fused_head {label}: group maxima differ beyond rtol 1e-5 "
              f"(max abs err {err.max().item():.3e})")
     max_abs_err = float(err[plain > fh.NEG / 2].max().item())
     kv, kr = fh.fused_head_topk(index, qids, qw, top_k=10)
     pv, pr = fh.fused_head_topk(index, qids, qw, top_k=10,
                                 blockmax=fh.fused_head_blockmax_plain)
     if not torch.equal(kr, pr) or not torch.equal(kv, pv):
-        fail("fused_head: final (vals, rows) differ between kernel and plain")
-    reps = 10
-    ms = time_ms(lambda: fh.fused_head_blockmax(Wp, head, bias), reps)
-    plain_ms = time_ms(lambda: fh.fused_head_blockmax_plain(Wp, head, bias), 3,
+        fail(f"fused_head {label}: final (vals, rows) differ between kernel "
+             f"and plain")
+    ms = time_ms(lambda: fh.fused_head_blockmax(*args), reps)
+    plain_ms = time_ms(lambda: fh.fused_head_blockmax_plain(*args), 3,
                        warmup=1)
+    # the library yardstick: the whole-head product of the uncompacted W
+    Wp = torch.zeros_like(Wc)
+    Wp[:, rows.long()] = Wc
     if head.dtype == torch.bfloat16:
         lib_fn = lambda: (torch.mm(Wp, head, out_dtype=torch.float32)  # noqa: E731
                           + bias).view(Qp, -1, 8).amax(-1)
@@ -170,17 +222,22 @@ def check_fused_head(index, qids, qw):
         lib_fn = lambda: (Wp @ head + bias).view(Qp, -1, 8).amax(-1)  # noqa: E731
         peak = PEAK_F32_FLOPS
     library_ms = time_ms(lib_fn, reps)
-    n_bytes = (D * N * head.element_size() + Qp * D * head.element_size()
-               + N * 4 + Qp * (N // 8) * 4)
-    flops = 2.0 * Qp * D * N
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    say(f"[k2 fused_head] head {tuple(head.shape)} {head.dtype}, Qp={Qp}: "
-        f"group maxima within rtol 1e-5 (max abs err {max_abs_err:.3e}), "
-        f"final rows equal; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; "
-        f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms)")
+    es = head.element_size()
+    io = N * 4 + Q * (N // 8) * 4                 # bias in, group maxima out
+
+    def bound(d):
+        t_b = (d * N * es + Q * d * es + d * 4 + io) / PEAK_BYTES_PER_S * 1e3
+        t_o = 2.0 * Q * d * N / peak * 1e3
+        return max((t_b, "bytes"), (t_o, "operations"))
+
+    bound_ms, bound_by = bound(n_act)
+    whole_ms, whole_by = bound(D)
+    say(f"[k2 fused_head {label}] head {tuple(head.shape)} {head.dtype}, "
+        f"Q={Q} (Qp={Qp}), n_active={n_act} of {D} rows: group maxima "
+        f"within rtol 1e-5 (max abs err {max_abs_err:.3e}), final rows "
+        f"equal; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}, "
+        f"active rows) whole_head_bound_ms={whole_ms:.5f} ({whole_by})")
     return dict(name="fused_head", route="cuda",
                 source="tdr_torch/csrc/fused_head.cu",
                 replaces="tdr/ops/pallas_flat.py:284", launches=0,
@@ -198,22 +255,48 @@ def check_fused_head_f32(index, qids, qw):
     D, N = head.shape
     Q = qids.shape[0]
     Qp = fh._round_up(Q, 128)
-    W, _, _ = fh.query_weight_matrix(index, qids, qw)
-    Wp = torch.zeros((Qp, D), dtype=torch.float32, device=head.device)
-    Wp[:Q] = W
+    W, slot, active = fh.query_weight_matrix(index, qids, qw)
+    rows, n_active, Wc = fh.compact_active_rows(W, slot, active, Qp,
+                                                torch.float32)
     bias = torch.where(torch.arange(N, device=head.device) < index.n_docs,
                        0.0, fh.NEG).float()
-    kern = fh.fused_head_blockmax(Wp, head, bias)
-    plain = fh.fused_head_blockmax_plain(Wp, head, bias)
+    args = (Wc, head, rows, n_active, bias)
+    kern = fh.fused_head_blockmax(*args)
+    plain = fh.fused_head_blockmax_plain(*args)
     torch.cuda.synchronize()
     err = (kern - plain).abs()
     if not bool((err <= 1e-5 * plain.abs() + 1e-6).all()):
         fail(f"fused_head f32: group maxima differ beyond rtol 1e-5 "
              f"(max abs err {err.max().item():.3e})")
-    ms = time_ms(lambda: fh.fused_head_blockmax(Wp, head, bias), 3, warmup=1)
+    ms = time_ms(lambda: fh.fused_head_blockmax(*args), 3, warmup=1)
     say(f"[k2 fused_head f32 head] {tuple(head.shape)}: group maxima within "
         f"rtol 1e-5 (max abs err {err[plain > fh.NEG / 2].max().item():.3e}); "
         f"kernel_ms={ms:.5f}")
+    del head
+
+
+def check_fused_head_ragged(index, qids, qw, n_docs=131_200):
+    """K2 on a head slice whose document count is a multiple of 128 but not
+    of the kernel's 256-document tile (the last tile half empty): group
+    maxima within rtol 1e-5 of the plain version."""
+    import torch
+    from tdr_torch.ops import fused_head as fh
+
+    head = index.head_rows[:, :n_docs].contiguous()
+    Qp = fh._round_up(qids.shape[0], 128)
+    rows, n_active, Wc = k2_operands(index, qids, qw, Qp)
+    bias = torch.zeros(n_docs, device=head.device)
+    kern = fh.fused_head_blockmax(Wc, head, rows, n_active, bias)
+    plain = fh.fused_head_blockmax_plain(Wc, head, rows, n_active, bias)
+    torch.cuda.synchronize()
+    err = (kern - plain).abs()
+    if not bool((err <= 1e-5 * plain.abs() + 1e-6).all()):
+        fail(f"fused_head ragged N={n_docs}: group maxima differ beyond rtol "
+             f"1e-5 (max abs err {err.max().item():.3e})")
+    say(f"[k2 fused_head ragged] head {tuple(head.shape)} (N % 256 = "
+        f"{n_docs % 256}), Q={qids.shape[0]}, n_active={int(n_active.item())}"
+        f": group maxima within rtol 1e-5 (max abs err "
+        f"{err.max().item():.3e})")
     del head
 
 
@@ -580,8 +663,13 @@ def profile_pass(label, run, trace_out=None) -> None:
             t = getattr(e, "cuda_time_total", 0)
         if t > 0 and e.device_type.name == "CUDA":
             rows[e.key] = (t, e.count)
-    for key, (t, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:15]:
-        say(f"[profile {label}]   {t / 1e3:10.3f} ms  x{n:<5d} {key[:90]}")
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    # the top 15, and the port's own kernels wherever they rank
+    ours = ("tail_compact", "fused_head", "fused_flat", "head_scores")
+    for rank, (key, (t, n)) in enumerate(ranked):
+        if rank < 15 or any(k in key for k in ours):
+            say(f"[profile {label}]   {t / 1e3:10.3f} ms  x{n:<5d} "
+                f"{key[:90]}")
     # the same device time by the torch operator that launched it
     ops = [(e.self_device_time_total, e.count, e.key)
            for e in prof.key_averages()
@@ -669,21 +757,36 @@ def main() -> None:
     k1_lang = "es" if "es" in tail_langs else tail_langs[0]
     router = LanguageRouter(models, query_batch=256)
 
-    def batch(lang, n):
-        qs = [q for q, l in zip(queries.queries, queries.langs) if l == lang][:n]
+    def batch(lang, n, start=0):
+        qs = [q for q, l in zip(queries.queries, queries.langs)
+              if l == lang][start:start + n]
         toks = router._tokenize(qs, range(len(qs)), lang)
         toks = toks + [[]] * (n - len(toks))
         return models[lang].encode_query_tokens(toks)
 
+    k2_ix = models[k2_lang].index
     qids, qw = batch(k2_lang, 256)
-    rec_k2 = check_fused_head(models[k2_lang].index, qids, qw)
-    check_fused_head_f32(models[k2_lang].index, qids, qw)
+    rec_k2 = check_fused_head(k2_ix, qids, qw, f"{k2_lang} Q=256")
+    check_fused_head_f32(k2_ix, qids, qw)
+    check_fused_head(k2_ix, qids, torch.zeros_like(qw), "no head term",
+                     want_active=0)
+    n_k2 = sum(1 for l in queries.langs if l == k2_lang)
+    last = (n_k2 - 1) % 256 + 1                 # the router's last batch
+    check_fused_head(k2_ix, *batch(k2_lang, last, n_k2 - last),
+                     f"{k2_lang} last batch Q={last}")
+    cover_ix, cover_qids, cover_qw = cover_batch(k2_ix)
+    check_fused_head(cover_ix, cover_qids, cover_qw, "full coverage",
+                     want_active=k2_ix.head_rows.shape[0])
+    del cover_ix
+    check_fused_head_ragged(k2_ix, qids, qw)
     qids, qw = batch(k1_lang, 256)
     rec_k1 = check_tail_compact(models[k1_lang].index, qids, qw, "Q=256")
     qids, qw = batch(k1_lang, 1)
     check_tail_compact(models[k1_lang].index, qids, qw, "Q=1")
 
     # -- phase 3b: K3 at the dense bench's shape -----------------------------
+    import numpy as np
+
     bench_emb, bench_q = bench_embeddings()
     bq = torch.as_tensor(bench_q, device=DEVICE)
     for dtype in ("bfloat16", "int8", "float32"):
@@ -694,6 +797,24 @@ def main() -> None:
                 check_fused_flat(index, bq, "bfloat16 ip n_valid=100000",
                                  n_valid=100_000)
             del index
+    # the last document tile ragged (N % 256 = 64), and rows too deep for
+    # the resident query slab (D = 768 bf16: the query tile streams)
+    from tdr_torch.models.dense import build_flat_index
+    extra = np.random.RandomState(1).randn(64, 256).astype(np.float32)
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    ragged = np.concatenate([bench_emb, extra])
+    for dtype in ("bfloat16", "int8"):
+        index = build_flat_index(ragged, pad_multiple=64, dtype=dtype,
+                                 device=DEVICE)
+        check_fused_flat(index, bq, f"{dtype} ip ragged N={ragged.shape[0]}")
+        del index
+    deep = np.random.RandomState(2).randn(65_664, 768).astype(np.float32)
+    deep /= np.linalg.norm(deep, axis=1, keepdims=True)
+    index = build_flat_index(deep, dtype="bfloat16", device=DEVICE)
+    check_fused_flat(index, torch.as_tensor(
+        np.random.RandomState(3).randn(256, 768).astype(np.float32),
+        device=DEVICE), "bfloat16 ip D=768 streamed query tile")
+    del index, deep, ragged
 
     # -- phase 3c: K4 on the en and de heads ---------------------------------
     head_langs = [l for l in ("en", "de") if l in models]

@@ -19,222 +19,192 @@
 // f32; out (Qp, N / 8) f32, queries major (the JAX kernel writes the
 // transpose, (N / 8, Qp)).
 //
-// What bounds it on this card: at the dense path's shape (Q = 2000 padded
-// to 2048, N = 268,032, D = 384, bf16) the product is 0.42 TFLOP, 0.43 ms
-// at 989 TFLOP/s, against a 0.21 GB embedding read, 0.06 ms at 3.35 TB/s:
-// bound by operations, so the product runs on the tensor cores.  At the
-// bench shape (Q = 256, D = 256) the two are close (0.034 ms of bf16 work,
-// 0.050 ms of bytes).  The design:
-//   * bf16 and int8 share one kernel: a 2-D grid of (128 queries) x (128
-//     documents) tiles; 8 warps, each 64 queries x 32 documents, with
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate) or m16n8k32 (s8 in, s32
-//     accumulate), fed by ldmatrix from a two-stage cp.async ring over
-//     64-byte slices of D.  E is documents-major, i.e. already K-contiguous
-//     for mma's "col" B operand, so B needs no ldmatrix .trans, and one
-//     ldmatrix address pattern serves both element types (both mma shapes
-//     consume 32 bytes of depth).  The query tiles of one document tile are
-//     adjacent in launch order, so the embeddings cross HBM about once.
-//     Epilogue: scales and bias in f32, the group-of-8 maximum as a pair
-//     max inside the thread and two shuffles inside each quad of lanes.
+// What bounds it on this card (H100 SXM at its 700 W limit: 3.35 TB/s,
+// 989 TFLOP/s bf16, 1,979 TOP/s int8):
+//   * the dense pass (Q = 2000 padded to 2048, N = 268,032, D = 384, bf16):
+//     412 GFLOP, 0.416 ms of operations, against 0.47 GB of bytes (0.21 GB
+//     of embeddings, 0.27 GB of group maxima), 0.142 ms: bound by
+//     operations, so the product must run at the tensor cores' rate, which
+//     only wgmma reaches;
+//   * the bench shape (Q = 256, N = 262,144, D = 256): bound by bytes,
+//     0.0504 ms in bf16 and 0.0307 ms in int8 (the embeddings and the group
+//     maxima), against 0.034 and 0.017 ms of tensor work.
+// The design (bf16 and int8, one templated body):
+//   * the ring of hopper.cuh: persistent CTAs, warpgroup 0's first thread
+//     issues the TMA loads, two consumer warpgroups each run wgmma over 64
+//     queries x 256 documents (m64n256k16 bf16 -> f32, or m64n256k32 s8 ->
+//     s32, exact).  Q and E are both K-major (the "TN" case), loaded as
+//     128-byte-deep boxes under the 128-byte swizzle, so both element types
+//     consume 32 bytes of depth per instruction and share every address;
+//     only the instruction and the epilogue differ.
+//   * each CTA keeps one query tile and walks every (CTAs / query tiles)-th
+//     embedding tile, so the query tiles of one embedding tile run at about
+//     the same time: the embeddings cross HBM once, and the 1.5 MB of
+//     queries sit in L2.
+//   * L2 -> SM traffic.  Re-reading both operands for every 128 x 256 tile
+//     moves 4.9 GB at the dense pass (3.3 GB of embeddings: 206 MB for
+//     each of 16 query tiles; 1.6 GB of 96 KB query slabs, one per tile).
+//     So a row of up to 768 bytes (D = 384 bf16) keeps its query tile's
+//     whole depth resident in shared memory, loaded once per CTA, and the
+//     ring carries embedding slices alone: 3.3 GB.  The slab takes ring
+//     bytes: 4 stages remain up to 512-byte rows, 3 at 768.  Deeper rows
+//     stream both operands through the 4-stage ring.  Measured by
+//     tdr_torch/tools/flat_variants.py (NVIDIA H100 80GB HBM3, 700 W; the
+//     ranges span three processes): at the dense pass the loads alone
+//     take 0.258-0.263 ms resident against 0.347-0.371 ms streamed, but the
+//     whole kernel only 0.621-0.635 ms against 0.645-0.658 ms, because with
+//     the products in the traffic is no longer what limits it: without its
+//     epilogue the kernel takes 0.506-0.508 ms resident, 0.519-0.530 ms
+//     streamed, against 0.416 ms of tensor work.
+//   * the ring runs across tiles: the producer loads the next tile's slices
+//     while the consumers run this tile's epilogue.
+//   * epilogue: scales and bias in f32 as above, then the group-of-8 max
+//     over the wgmma accumulator (hopper.cuh's store_group_max: 16-byte
+//     stores); documents past N (the last tile, N a multiple of 64) read
+//     as zero through the TMA and their groups are never stored.
 //   * f32 (tests and small indexes): plain FMA on CUDA cores (no TF32),
 //     64 x 64 tiles, each thread owning one group of 8 documents for 2
 //     queries.
-// TMA, wgmma and a deeper ring are later work.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.629 ms
+// at the dense pass (66% of its bound), 0.066 ms bf16 and 0.054 ms int8
+// at the bench shape (76% and 57%).  What is left is mostly the epilogue
+// (0.11-0.13 ms at the dense pass), which both consumer warpgroups run at
+// once while the tensor cores idle: overlapping it needs warpgroups on
+// different tiles or a second set of accumulators, which the register file
+// does not hold at 64 x 256 a warpgroup.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 128;       // queries per block
-constexpr int BN = 128;       // documents per block
-constexpr int BKB = 64;       // bytes of depth per shared-memory slice
-constexpr int SS = BKB + 16;  // row stride in bytes: 80, ldmatrix conflict-free
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16 x 8 x (32 bytes of depth): bf16 -> f32
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 x 8 x (32 bytes of depth): s8 -> s32, exact
-__device__ __forceinline__ void mma(int* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float group_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-template <typename Acc>
-__global__ void __launch_bounds__(256) fused_flat_mma_kernel(
-    const uint8_t* __restrict__ Q, const uint8_t* __restrict__ E,
-    const float* __restrict__ bias, const float* __restrict__ dscale,
-    const float* __restrict__ qscale, float* __restrict__ out, int row_bytes,
-    int N, float alpha) {
-  constexpr bool kInt8 = std::is_same<Acc, int>::value;
-  __shared__ __align__(128) uint8_t As[2][BM * SS];
-  __shared__ __align__(128) uint8_t Bs[2][BN * SS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;   // 0..1: 64 queries each
-  const int wn = warp & 3;    // 0..3: 32 documents each
-  const int q0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ng = N / 8;
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = Acc(0);
-
-  // 128 rows x 4 chunks of 16 bytes for each operand; documents past N are
-  // zero-filled (src_bytes = 0) and never stored.
-  auto load_slice = [&](int stage, int kb) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;
-      const int row = c >> 2, cb = (c & 3) * 16;
-      cp_async16(smem_u32(&As[stage][row * SS + cb]),
-                 Q + (size_t)(q0 + row) * row_bytes + kb + cb, 16);
-      const int n = n0 + row;
-      const bool ok = n < N;
-      cp_async16(smem_u32(&Bs[stage][row * SS + cb]),
-                 E + (size_t)(ok ? n : 0) * row_bytes + kb + cb, ok ? 16 : 0);
+// One CTA keeps one query tile (qt = blockIdx.x % n_qt) and walks every
+// (gridDim.x / n_qt)-th document tile, so the CTAs that share a document
+// tile run it at about the same time.  kResident: the query tile's whole
+// depth is loaded once and stays in shared memory, and the ring carries
+// embedding slices alone; else both operands stream through the ring.
+template <bool kInt8, bool kResident>
+__global__ void __launch_bounds__(hopper::kThreads, 1) fused_flat_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap emap, const float* __restrict__ bias,
+    const float* __restrict__ dscale, const float* __restrict__ qscale,
+    float* __restrict__ out, int n_qt, int kt, int N, float alpha) {
+  using namespace hopper;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int kElems = kInt8 ? kSliceBytes : kSliceBytes / 2;
+  const int stages = kResident ? resident_stages(kt) : kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = kResident ? carve_ring(smem_raw, kt * kABytes, stages)
+                              : carve_ring(smem_raw);
+  const int n_dt = (N + kTileN - 1) / kTileN;
+  const int qt = blockIdx.x % n_qt;
+  const int dt0 = blockIdx.x / n_qt, dstep = gridDim.x / n_qt;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumerWarps);
     }
-  };
-
-  const int KT = row_bytes / BKB;
-  load_slice(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) load_slice((kt + 1) & 1, (kt + 1) * BKB);
-    cp_async_commit();                      // possibly empty: keeps the count
-    cp_async_wait_1();                      // slice kt has landed
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kb = 0; kb < BKB; kb += 32) {
-      uint32_t a[4][4];
-      uint32_t b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = wm * 64 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int cb = kb + (lane >> 4) * 16;
-        ldmatrix_x4(a[i], smem_u32(&As[st][row * SS + cb]));
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // matrices: (docs 0-7, bytes 0-15), (0-7, 16-31), (8-15, 0-15),
-        // (8-15, 16-31) of this 16-document pair of n8 tiles
-        const int row = wn * 32 + j * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int cb = kb + ((lane >> 3) & 1) * 16;
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(&Bs[st][row * SS + cb]));
-        b[2 * j][0] = r[0];
-        b[2 * j][1] = r[1];
-        b[2 * j + 1][0] = r[2];
-        b[2 * j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();                        // stage st is free for reuse
+    mbar_init(ring.qfull, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // Epilogue.  Fragment of tile (i, j): this lane holds queries g and g + 8
-  // at documents 2*tig and 2*tig + 1 of the 8-document group j.
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  float lo[4][4], hi[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int nb = n0 + wn * 32 + j * 8 + tig * 2;
-    const bool ok = nb < N;                 // the whole group is in or out
-    const float b0 = ok ? bias[nb] : 0.0f, b1 = ok ? bias[nb + 1] : 0.0f;
-    float d0 = 1.0f, d1 = 1.0f;
+  if (wg == 0) {
+    // ---- producer: one thread, both operands by TMA --------------------------
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      if constexpr (kResident) {
+        mbar_arrive_expect_tx(ring.qfull, kt * kABytes);
+        for (int k = 0; k < kt; ++k)
+          tma_load_2d(ring.a + k * kABytes, &qmap, k * kElems, qt * kTileM,
+                      ring.qfull);
+      }
+      int s = 0;
+      uint32_t ph = 0;
+      for (int dt = dt0; dt < n_dt; dt += dstep) {
+        for (int k = 0; k < kt; ++k) {
+          mbar_wait(&ring.empty[s], ph ^ 1);
+          if constexpr (kResident) {
+            mbar_arrive_expect_tx(&ring.full[s], kBBytes);
+          } else {
+            mbar_arrive_expect_tx(&ring.full[s], kABytes + kBBytes);
+            tma_load_2d(ring.a + s * kABytes, &qmap, k * kElems, qt * kTileM,
+                        &ring.full[s]);
+          }
+          tma_load_2d(ring.b + s * kBBytes, &emap, k * kElems, dt * kTileN,
+                      &ring.full[s]);
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 queries x 256 documents each ------------------------
+    setmaxnreg_inc<232>();
+    const int w = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int ng = N / 8;
+    const int q_lo = qt * kTileM + w * 64 + warp * 16 + (lane >> 2);
+    float qs[2] = {1.0f, 1.0f};
     if constexpr (kInt8) {
-      d0 = ok ? dscale[nb] : 0.0f;
-      d1 = ok ? dscale[nb + 1] : 0.0f;
+      qs[0] = qscale[q_lo];
+      qs[1] = qscale[q_lo + 8];
     }
+    if constexpr (kResident) mbar_wait(ring.qfull, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    Acc acc[128];
+    for (int dt = dt0, it = 0; dt < n_dt; dt += dstep, ++it) {
+      const int n0 = dt * kTileN;
+      float* side = ring.side + (w * 2 + (it & 1)) * kSideFloats;
+      load_side(side, bias, kInt8 ? dscale : nullptr, n0, N);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + wm * 64 + i * 16 + g;
-      float v[4];
-      if constexpr (kInt8) {
-        const float qs_lo = qscale[q], qs_hi = qscale[q + 8];
-        v[0] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][0]), d0), qs_lo);
-        v[1] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][1]), d1), qs_lo);
-        v[2] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2]), d0), qs_hi);
-        v[3] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][3]), d1), qs_hi);
-      } else {
+      for (int i = 0; i < 128; ++i) acc[i] = Acc(0);
+      fence_operands(acc);
+      int prev = -1;
+      for (int k = 0; k < kt; ++k) {
+        mbar_wait(&ring.full[s], ph);
+        const uint32_t a = smem_u32(ring.a + (kResident ? k : s) * kABytes
+                                    + w * 64 * 128);
+        const uint32_t b = smem_u32(ring.b + s * kBBytes);
+        wgmma_fence();
 #pragma unroll
-        for (int r = 0; r < 4; ++r) v[r] = acc[i][j][r];
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = make_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = make_desc(b + kk * 32, 16, 1024);
+          if constexpr (kInt8)
+            wgmma_m64n256k32_s8(acc, da, db);
+          else
+            wgmma_m64n256k16_bf16<0>(acc, da, db);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();                // the previous slice's products
+        if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+        prev = s;
+        if (++s == stages) { s = 0; ph ^= 1; }
       }
-      const float l = fmaxf(__fadd_rn(__fmul_rn(alpha, v[0]), b0),
-                            __fadd_rn(__fmul_rn(alpha, v[1]), b1));
-      const float h = fmaxf(__fadd_rn(__fmul_rn(alpha, v[2]), b0),
-                            __fadd_rn(__fmul_rn(alpha, v[3]), b1));
-      lo[i][j] = group_max(l);
-      hi[i][j] = group_max(h);
-    }
-  }
-  // lane tig stores group tig: four neighbouring groups per query row
-  const int grp = (n0 + wn * 32) / 8 + tig;
-  if (grp < ng) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float l = tig == 0 ? lo[i][0] : tig == 1 ? lo[i][1]
-                    : tig == 2 ? lo[i][2] : lo[i][3];
-      const float h = tig == 0 ? hi[i][0] : tig == 1 ? hi[i][1]
-                    : tig == 2 ? hi[i][2] : hi[i][3];
-      const int q = q0 + wm * 64 + i * 16 + g;
-      out[(size_t)q * ng + grp] = l;
-      out[(size_t)(q + 8) * ng + grp] = h;
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+
+      wait_side(w);
+      const float* sb = side + 2 * (lane & 3);   // bias, then dscale
+      auto score = [&](int i, int e) {
+        float v;
+        if constexpr (kInt8)
+          v = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * i + e]),
+                                  sb[kTileN + 8 * i + (e & 1)]),
+                        qs[e >> 1]);
+        else
+          v = acc[4 * i + e];
+        return __fadd_rn(__fmul_rn(alpha, v), sb[8 * i + (e & 1)]);
+      };
+      store_group_max(score, out, ng, q_lo, n0 / 8);
     }
   }
 }
@@ -296,27 +266,66 @@ __global__ void __launch_bounds__(256) fused_flat_f32_kernel(
   }
 }
 
+template <bool kInt8, bool kResident>
+int launch_mode(const void* Q, const void* E, const float* bias,
+                const float* dscale, const float* qscale, float* out, int Qp,
+                int D, int N, float alpha, void* stream) {
+  using namespace hopper;
+  const int esize = kInt8 ? 1 : 2;
+  const CUtensorMapDataType dt = kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap, emap;
+  if (!encode_2d(&qmap, Q, dt, esize, Qp, D, kTileM) ||
+      !encode_2d(&emap, E, dt, esize, N, D, kTileN))
+    return (int)cudaErrorInvalidValue;
+  static int sm_cache[kMaxDevices] = {};
+  int sms = 0;
+  const cudaError_t e = prepare(
+      (const void*)fused_flat_wgmma_kernel<kInt8, kResident>, sm_cache, &sms);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = Qp / kTileM;
+  const int n_dt = (N + kTileN - 1) / kTileN;
+  const int kt = (D * esize + kSliceBytes - 1) / kSliceBytes;
+  // CTAs per query tile: as many as fill the SMs, each with a tile at least
+  int per = sms / n_qt;
+  if (per < 1) per = 1;
+  if (per > n_dt) per = n_dt;
+  fused_flat_wgmma_kernel<kInt8, kResident><<<per * n_qt, kThreads, kSmemBytes,
+                                              (cudaStream_t)stream>>>(
+      qmap, emap, bias, dscale, qscale, out, n_qt, kt, N, alpha);
+  return (int)cudaGetLastError();
+}
+
+// The query tile stays resident when its depth fits the slab (rows of up
+// to 768 bytes); deeper rows stream through the ring.
+template <bool kInt8>
+int launch_flat(const void* Q, const void* E, const float* bias,
+                const float* dscale, const float* qscale, float* out, int Qp,
+                int D, int N, float alpha, void* stream) {
+  const int kt = (D * (kInt8 ? 1 : 2) + hopper::kSliceBytes - 1)
+                 / hopper::kSliceBytes;
+  const bool resident = kt <= hopper::kResidentSlices;
+  return resident ? launch_mode<kInt8, true>(Q, E, bias, dscale, qscale, out,
+                                             Qp, D, N, alpha, stream)
+                  : launch_mode<kInt8, false>(Q, E, bias, dscale, qscale, out,
+                                              Qp, D, N, alpha, stream);
+}
+
 }  // namespace
 
 extern "C" int tdr_fused_flat_bf16(const void* Q, const void* E,
                                    const float* bias, float* out, int Qp,
                                    int D, int N, float alpha, void* stream) {
-  dim3 grid(Qp / BM, (N + BN - 1) / BN);
-  fused_flat_mma_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)Q, (const uint8_t*)E, bias, nullptr, nullptr, out,
-      D * 2, N, alpha);
-  return (int)cudaGetLastError();
+  return launch_flat<false>(Q, E, bias, nullptr, nullptr, out, Qp, D, N,
+                            alpha, stream);
 }
 
 extern "C" int tdr_fused_flat_int8(const void* Q, const void* E,
                                    const float* bias, const float* dscale,
                                    const float* qscale, float* out, int Qp,
                                    int D, int N, float alpha, void* stream) {
-  dim3 grid(Qp / BM, (N + BN - 1) / BN);
-  fused_flat_mma_kernel<int><<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)Q, (const uint8_t*)E, bias, dscale, qscale, out, D, N,
-      alpha);
-  return (int)cudaGetLastError();
+  return launch_flat<true>(Q, E, bias, dscale, qscale, out, Qp, D, N, alpha,
+                           stream);
 }
 
 extern "C" int tdr_fused_flat_f32(const float* Q, const float* E,

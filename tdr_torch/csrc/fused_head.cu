@@ -3,199 +3,179 @@
 //
 // Replaces the TPU kernel `fused_head_topk` (tdr/ops/pallas_flat.py, body
 // `_make_head_kernel`).  For queries q and documents n it computes
-//     s[q, n] = sum_d W[q, d] * head[d, n] + bias[n]
+//     s[q, n] = sum_{j < n_active} Wc[q, j] * head[rows[j], n] + bias[n]
 // with f32 accumulation and writes only the maximum over each group of 8
-// consecutive documents, out[q, n / 8].  The (Q, N) score matrix never
-// reaches device memory; phase 2 (group top-k, exact rescore, 2-key sort)
-// is torch code in tdr_torch/ops/fused_head.py.
+// consecutive documents, out[q, n / 8].  rows lists the head slots that
+// some query of the batch uses, first and ascending; Wc holds their
+// slot-summed weights (tdr_torch/ops/fused_head.py builds both on the
+// device).  A slot no query uses has an all-zero column of W, so this is
+// W · head with the zero columns skipped.  The (Q, N) score matrix never
+// reaches device memory; phase 2 is torch code in fused_head.py.
 //
-// Layouts: W (Qp, D) row-major in the head's dtype, Qp a multiple of 128;
-// head (D, N) row-major, N a multiple of 128, D a multiple of 8; bias (N,)
-// f32; out (Qp, N / 8) f32 (queries major, so phase 2's top-k runs along
-// contiguous rows).
+// Layouts: Wc (Qp, D) row-major in the head's dtype, Qp a multiple of 128;
+// head (D, N) row-major, N a multiple of 128, D a multiple of 8; rows (D,)
+// int32; n_active one int32 in device memory, read by the kernel (no host
+// sync); bias (N,) f32; out (Qp, N / 8) f32, queries major.
 //
-// What bounds it on this card: at the en shape (D = 4096, N = 262144,
-// Q = 256, bf16) the head read is 2.15 GB, 0.64 ms at 3.35 TB/s, against
-// 0.55 ms of bf16 tensor work at 989 TFLOP/s: memory bound, but only just,
-// so the product has to run on the tensor cores.  The design:
-//   * bf16: a 2-D grid of (128 queries) x (128 documents) tiles; 8 warps,
-//     each 64 queries x 32 documents, with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) fed by ldmatrix from a two-stage cp.async ring over
-//     32-deep slices of D.  The two query tiles of one document tile are
-//     adjacent in launch order, so the second read of each head tile comes
-//     from L2 and the head crosses HBM about once.  In the epilogue the
-//     bias is added and the group-of-8 maximum is a pair max inside the
-//     thread and two shuffles inside each quad of lanes; one lane per group
-//     stores, four neighbouring groups per 16 bytes.
+// What bounds it on this card (H100 SXM at its 700 W limit: 3.35 TB/s,
+// 989 TFLOP/s bf16), at the en shape (D = 4096, N = 262,144, Q = 256,
+// bf16):
+//   * whole head: 2.15 GB of head, 0.652 ms of bytes against 0.556 ms of
+//     tensor work;
+//   * active rows: a batch of 256 en queries uses 1,037 distinct head rows,
+//     0.54 GB + 33.5 MB of output, 0.173 ms of bytes against 139 GFLOP,
+//     0.141 ms.  Both are near the line where bytes and operations balance,
+//     so the product must run at the tensor cores' rate, which only wgmma
+//     reaches.
+// The design (bf16):
+//   * only the active rows are streamed: the loop runs over ceil(n_active /
+//     64) slices of 64 depth rows; a slice row at or past n_active is
+//     zero-filled in shared memory (cp.async with 0 source bytes, no read),
+//     and meets the zero columns of Wc past n_active.  n_active = 0 leaves
+//     the group maxima of the bias.
+//   * the ring of hopper.cuh: persistent CTAs, warpgroup 0 produces, two
+//     consumer warpgroups each run wgmma m64n256k16 over 64 queries x 256
+//     documents.  A (a 128 x 64 slice of Wc, K-major) comes by 2-D TMA; the
+//     gathered head rows (MN-major B) cannot come by one TMA box, so the
+//     producer's four warps issue 16-byte cp.async, one warp instruction
+//     per 512-byte row segment, to the addresses a 128-byte-swizzled box
+//     would use, and arrive on the stage's mbarrier with
+//     cp.async.mbarrier.arrive.noinc.  wgmma takes
+//     MN-major bf16 B through its transpose bit: no ldmatrix.trans.  Four
+//     stages of 48 KB keep up to 192 KB in flight per SM, against about
+//     25 KB that 3.35 TB/s x 1 us spread over 132 SMs asks for.
+//   * tile order: the query tiles of one document tile are neighbours, so
+//     the head crosses HBM once and its second read comes from L2.
+//     L2 -> SM traffic at the en shape: the head rows twice (1.09 GB) and
+//     Wc once per tile (2,048 tiles x 128 x 1,088 x 2 B = 0.57 GB).  A
+//     cluster multicast of the shared operand would halve it.
+//   * epilogue: the bias, then the group-of-8 max over the wgmma
+//     accumulator (hopper.cuh's store_group_max: 16-byte stores).
 //   * f32 (tests and small indexes): plain FMA on CUDA cores, 64 x 64 tiles,
-//     each thread owning one group of 8 documents for 2 queries.
-// wgmma/TMA and a deeper ring are later work.
+//     each thread owning one group of 8 documents for 2 queries, over the
+//     whole head (the wrapper scatters Wc back to head-slot columns).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.317 ms
+// at the en shape with 1,025 active rows (54% of their 0.171 ms bound),
+// 1.19 ms with all 4,096 rows active (55% of the whole-head bound).  Both consumer
+// warpgroups run the epilogue at once while the tensor cores idle; that is
+// the next thing to overlap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 128;       // queries per block
-constexpr int BN = 128;       // documents per block
-constexpr int BK = 32;        // depth of one shared-memory slice
-constexpr int AS = BK + 8;    // A row stride (bf16): 80 B, ldmatrix conflict-free
-constexpr int BS = BN + 8;    // B row stride (bf16): 272 B, ldmatrix conflict-free
+constexpr int kDepth = hopper::kSliceBytes / 2;   // bf16 depth rows a slice
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(256) fused_head_bf16_kernel(
-    const __nv_bfloat16* __restrict__ W, const __nv_bfloat16* __restrict__ H,
-    const float* __restrict__ bias, float* __restrict__ out, int D, int N) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM * AS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][BK * BS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;   // 0..1: 64 queries each
-  const int wn = warp & 3;    // 0..3: 32 documents each
-  const int q0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ng = N / 8;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
-
-  // D is a multiple of 8, so each 16-byte chunk is wholly inside or outside
-  // [0, D); chunks outside are zero-filled (src_bytes = 0).
-  auto load_slice = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;          // 128 rows x 4 chunks
-      const int row = c >> 2, kc = (c & 3) * 8;
-      const int k = k0 + kc;
-      const __nv_bfloat16* src = W + (size_t)(q0 + row) * D + (k < D ? k : 0);
-      cp_async16(smem_u32(&As[stage][row * AS + kc]), src, k < D ? 16 : 0);
+__global__ void __launch_bounds__(hopper::kThreads, 1) fused_head_wgmma_kernel(
+    const __grid_constant__ CUtensorMap wmap,
+    const __nv_bfloat16* __restrict__ H, const int* __restrict__ rows,
+    const int* __restrict__ n_active_p, const float* __restrict__ bias,
+    float* __restrict__ out, int n_qt, int N) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = carve_ring(smem_raw);
+  const int n_active = *n_active_p;
+  const int kt = (n_active + kDepth - 1) / kDepth;
+  const int tiles = n_qt * ((N + kTileN - 1) / kTileN);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 128 + 1);      // 128 cp.async + 1 TMA arrival
+      mbar_init(&ring.empty[s], kConsumerWarps);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;          // 32 rows x 16 chunks
-      const int row = c >> 4, nc = (c & 15) * 8;
-      const int k = k0 + row;
-      const __nv_bfloat16* src = H + (size_t)(k < D ? k : 0) * N + n0 + nc;
-      cp_async16(smem_u32(&Bs[stage][row * BS + nc]), src, k < D ? 16 : 0);
-    }
-  };
-
-  const int KT = (D + BK - 1) / BK;
-  load_slice(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) load_slice((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();                      // possibly empty: keeps the count
-    cp_async_wait_1();                      // slice kt has landed
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4];
-      uint32_t b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = wm * 64 + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = kk + (lane >> 4) * 8;
-        ldmatrix_x4(a[i], smem_u32(&As[st][row * AS + col]));
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = wn * 32 + j * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(b[2 * j][0], b[2 * j][1], b[2 * j + 1][0],
-                          b[2 * j + 1][1], smem_u32(&Bs[st][krow * BS + col]));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();                        // stage st is free for reuse
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // Epilogue.  Fragment of tile (i, j): this lane holds queries g and g + 8
-  // at documents 2*tig and 2*tig + 1 of the 8-document group j.
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  float lo[4][4], hi[4][4];
+  if (wg == 0) {
+    // ---- producer: A by TMA, the gathered head rows by cp.async ----------
+    setmaxnreg_dec<40>();
+    // warp wp fills depth rows wp, wp + 4, ...: one 512-byte row segment
+    // (the tile's 256 documents) per instruction, lane = 16-byte chunk
+    const int wp = tid >> 5, lane = tid & 31;
+    const int doc = lane * 8;
+    const int blk = lane >> 3, cc = lane & 7;  // 64-document block, chunk
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int qt = t % n_qt, n0 = (t / n_qt) * kTileN;
+      const bool dok = n0 + doc < N;
+      for (int k = 0; k < kt; ++k) {
+        // lane i < 16 looks up the head row of depth row wp + 4i
+        const int dl = k * kDepth + wp + 4 * (lane & 15);
+        const int rl = dl < n_active ? rows[dl] : -1;
+        mbar_wait(&ring.empty[s], ph ^ 1);
+        if (tid == 0) {
+          mbar_arrive_expect_tx(&ring.full[s], kABytes);
+          tma_load_2d(ring.a + s * kABytes, &wmap, k * kDepth, qt * kTileM,
+                      &ring.full[s]);
+        }
+        uint8_t* bst = ring.b + s * kBBytes + blk * 8192;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int nb = n0 + wn * 32 + j * 8 + tig * 2;
-    const float b0 = bias[nb], b1 = bias[nb + 1];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float l = fmaxf(acc[i][j][0] + b0, acc[i][j][1] + b1);
-      float h = fmaxf(acc[i][j][2] + b0, acc[i][j][3] + b1);
-      l = fmaxf(l, __shfl_xor_sync(0xffffffffu, l, 1));
-      h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, 1));
-      l = fmaxf(l, __shfl_xor_sync(0xffffffffu, l, 2));
-      h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, 2));
-      lo[i][j] = l;
-      hi[i][j] = h;
+        for (int i = 0; i < 16; ++i) {
+          const int j = wp + 4 * i;
+          const int r = __shfl_sync(0xffffffffu, rl, i);
+          const bool ok = r >= 0 && dok;
+          // the swizzled place a 128-byte-swizzled TMA box would use
+          cp_async16(smem_u32(bst + j * 128 + ((cc ^ (j & 7)) << 4)),
+                     ok ? (const void*)(H + (size_t)r * N + n0 + doc)
+                        : (const void*)H,
+                     ok ? 16 : 0);
+        }
+        cp_async_arrive_noinc(&ring.full[s]);
+        if (++s == kStages) { s = 0; ph ^= 1; }
+      }
     }
-  }
-  // lane tig stores group tig: four neighbouring groups per query row
-  const int grp = (n0 + wn * 32) / 8 + tig;
+  } else {
+    // ---- consumers: 64 queries x 256 documents each ------------------------
+    setmaxnreg_inc<232>();
+    const int w = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int ng = N / 8;
+    int s = 0;
+    uint32_t ph = 0;
+    float acc[128];
+    for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+      const int qt = t % n_qt, n0 = (t / n_qt) * kTileN;
+      float* side = ring.side + (w * 2 + (it & 1)) * kSideFloats;
+      load_side(side, bias, nullptr, n0, N);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l = tig == 0 ? lo[i][0] : tig == 1 ? lo[i][1]
-                  : tig == 2 ? lo[i][2] : lo[i][3];
-    const float h = tig == 0 ? hi[i][0] : tig == 1 ? hi[i][1]
-                  : tig == 2 ? hi[i][2] : hi[i][3];
-    const int q = q0 + wm * 64 + i * 16 + g;
-    out[(size_t)q * ng + grp] = l;
-    out[(size_t)(q + 8) * ng + grp] = h;
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      fence_operands(acc);
+      int prev = -1;
+      for (int k = 0; k < kt; ++k) {
+        mbar_wait(&ring.full[s], ph);
+        fence_proxy_async();            // the cp.async writes, for wgmma
+        const uint32_t a = smem_u32(ring.a + s * kABytes + w * 64 * 128);
+        const uint32_t b = smem_u32(ring.b + s * kBBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n256k16_bf16<1>(acc, make_desc(a + kk * 32, 16, 1024),
+                                   make_desc(b + kk * 2048, 8192, 1024));
+        wgmma_commit();
+        wgmma_wait<1>();                // the previous slice's products
+        if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+        prev = s;
+        if (++s == kStages) { s = 0; ph ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(&ring.empty[prev]);
+
+      wait_side(w);
+      const float* sb = side + 2 * (lane & 3);
+      auto score = [&](int i, int e) {
+        return acc[4 * i + e] + sb[8 * i + (e & 1)];
+      };
+      store_group_max(score, out, ng,
+                      qt * kTileM + w * 64 + warp * 16 + (lane >> 2), n0 / 8);
+    }
   }
 }
 
@@ -261,12 +241,26 @@ __global__ void __launch_bounds__(256) fused_head_f32_kernel(
 
 }  // namespace
 
-extern "C" int tdr_fused_head_bf16(const void* W, const void* H,
+extern "C" int tdr_fused_head_bf16(const void* Wc, const void* H,
+                                   const int* rows, const int* n_active,
                                    const float* bias, float* out, int Qp,
                                    int D, int N, void* stream) {
-  dim3 grid(Qp / BM, N / BN);
-  fused_head_bf16_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)W, (const __nv_bfloat16*)H, bias, out, D, N);
+  using namespace hopper;
+  CUtensorMap wmap;
+  if (!encode_2d(&wmap, Wc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, Qp, D,
+                 kTileM))
+    return (int)cudaErrorInvalidValue;
+  static int sm_cache[kMaxDevices] = {};
+  int sms = 0;
+  const cudaError_t e =
+      prepare((const void*)fused_head_wgmma_kernel, sm_cache, &sms);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = Qp / kTileM;
+  const int tiles = n_qt * ((N + kTileN - 1) / kTileN);
+  const int grid = tiles < sms ? tiles : sms;
+  fused_head_wgmma_kernel<<<grid, kThreads, kSmemBytes,
+                            (cudaStream_t)stream>>>(
+      wmap, (const __nv_bfloat16*)H, rows, n_active, bias, out, n_qt, N);
   return (int)cudaGetLastError();
 }
 

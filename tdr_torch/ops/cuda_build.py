@@ -4,7 +4,9 @@ Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain
 C interface, loaded with ``ctypes``.  The build happens at first use into
 ``tdr_torch/csrc/build/`` (listed in ``.gitignore``) and is redone when a
-source is newer than the library.  Nothing here runs when the module is
+source or a shared header (``hopper.cuh``) is newer than the library.  The
+TMA tensor maps are encoded through the runtime's driver entry point, so
+the link needs no ``-lcuda``.  Nothing here runs when the module is
 imported, so the CPU tests import every module without ``nvcc``.
 
 ``launches`` counts, per kernel, the launches the wrappers made; a wrapper
@@ -26,6 +28,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 SOURCES = ("tail_compact.cu", "fused_head.cu", "fused_flat.cu",
            "head_scores.cu")
+HEADERS = ("hopper.cuh",)     # included by the sources: a change rebuilds all
 LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -42,7 +45,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "tdr_tail_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tdr_fused_head_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tdr_fused_head_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_head_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_flat_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "tdr_fused_flat_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -70,7 +73,8 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     t = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(os.path.join(SRC_DIR, s)) > t for s in SOURCES)
+    return any(os.path.getmtime(os.path.join(SRC_DIR, s)) > t
+               for s in SOURCES + HEADERS)
 
 
 def build(force: bool = False) -> str:

@@ -1,17 +1,19 @@
 """Fused dense flat-search top-k: the port of ``fused_flat_topk`` in
 ``tdr/ops/pallas_flat.py``.
 
-Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_flat.cu``: the product of
-the queries with the (N, D) embeddings (bf16 or f32 with f32 accumulation,
-or int8 x int8 → int32 dequantized by the per-doc and per-query scales),
-times ``alpha``, plus a per-doc bias (the padding mask, and ``-‖d‖²`` for
-l2), reduced to the maximum of each group of 8 documents, so the (Q, N)
-score matrix never reaches memory.  Phase 2 is torch code, as the JAX code
-does it in XLA: top-k over the group maxima, an exact f32 rescore of the
-k·8 candidate documents against the *effective* query (the query rounded to
-the storage dtype, or ``q8·qs`` for int8), a 2-key sort (value descending,
-row ascending), the dead-slot clean-up and, for l2, ``-‖q‖²``.  The
-exactness argument is the one in ``tdr.ops.topk.topk_grouped``.
+Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_flat.cu`` (for bf16 and
+int8 a persistent, warp-specialised wgmma kernel fed by a TMA ring): the
+product of the queries with the (N, D) embeddings (bf16 or f32 with f32
+accumulation, or int8 x int8 → int32 dequantized by the per-doc and
+per-query scales), times ``alpha``, plus a per-doc bias (the padding mask,
+and ``-‖d‖²`` for l2), reduced to the maximum of each group of 8 documents,
+so the (Q, N) score matrix never reaches memory.  Phase 2 is torch code, as
+the JAX code does it in XLA: top-k over the group maxima, an exact f32
+rescore of the k·8 candidate documents against the *effective* query (the
+query rounded to the storage dtype, or ``q8·qs`` for int8), a 2-key sort
+(value descending, row ascending), the dead-slot clean-up and, for l2,
+``-‖q‖²``.  The exactness argument is the one in
+``tdr.ops.topk.topk_grouped``.
 
 ``fused_flat_blockmax`` launches the kernel for CUDA tensors and takes the
 plain version, ``fused_flat_blockmax_plain``, only for CPU tensors.
@@ -120,8 +122,7 @@ def fused_flat_blockmax(q: torch.Tensor, emb: torch.Tensor,
     if D2 != D or tuple(bias.shape) != (N,):
         raise ValueError(f"fused_flat: shapes q {tuple(q.shape)}, emb "
                          f"{tuple(emb.shape)}, bias {tuple(bias.shape)}")
-    if Qp % _LANES or N % 64 or (D * emb.element_size()) % 64 \
-            or -(-N // 128) > 65535:
+    if Qp % _LANES or N % 64 or (D * emb.element_size()) % 64:
         raise ValueError(f"fused_flat: needs Qp % 128 == 0, N % 64 == 0 and "
                          f"rows of a multiple of 64 bytes (got Qp={Qp}, N={N}, "
                          f"D={D}, {emb.dtype})")

@@ -2,10 +2,13 @@
 ``tdr/ops/pallas_flat.py``.
 
 Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_head.cu``: the head
-product ``W · head`` with f32 accumulation plus a -1e30 pad bias, reduced
-to the maximum of each group of 8 documents, so the (Q, N) score matrix
-never reaches memory.  Phase 2 is torch code, as the JAX code does it in
-XLA: top-k over the group maxima, an exact rescore of the k·8 candidate
+product with f32 accumulation plus a -1e30 pad bias, reduced to the maximum
+of each group of 8 documents, so the (Q, N) score matrix never reaches
+memory.  Before it, ``compact_active_rows`` lists on the device the head
+slots some query of the batch uses (``rows``, ``n_active``) and gathers
+their weight columns into ``Wc``, so the bf16 kernel streams only those
+rows of the head.  Phase 2 is torch code, as the JAX code does it in XLA:
+top-k over the group maxima, an exact rescore of the k·8 candidate
 documents from the active terms (slot-summed, head-dtype-rounded weights
 with a first-occurrence guard for terms sharing a slot), and a 2-key sort
 (value descending, row ascending).  The exactness argument is the one in
@@ -60,44 +63,66 @@ def fused_head_available(index, top_k: int = 10, sub: int = SUB) -> bool:
                             sub) > 0
 
 
-def fused_head_blockmax_plain(W: torch.Tensor, head: torch.Tensor,
+def fused_head_blockmax_plain(Wc: torch.Tensor, head: torch.Tensor,
+                              rows: torch.Tensor, n_active: torch.Tensor,
                               bias: torch.Tensor) -> torch.Tensor:
-    """Plain version of the kernel: (Qp, D) x (D, N) in f32, + bias, max
-    over groups of 8 documents → (Qp, N/8) f32."""
-    s = W.float() @ head.float() + bias[None, :]
+    """Plain version of the kernel: ``Wc[:, :n] · head[rows[:n]]`` in f32
+    (n = ``n_active``), + bias, max over groups of 8 documents → (Qp, N/8)
+    f32.  Reads ``n_active`` on the host."""
+    n = int(n_active)
+    s = Wc[:, :n].float() @ head[rows[:n].long()].float() + bias[None, :]
     return s.view(s.shape[0], -1, SUB).amax(dim=-1)
 
 
-def fused_head_blockmax(W: torch.Tensor, head: torch.Tensor,
+def fused_head_blockmax(Wc: torch.Tensor, head: torch.Tensor,
+                        rows: torch.Tensor, n_active: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
-    """Group-of-8 maxima of ``W · head + bias``, (Qp, N/8) f32: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """Group-of-8 maxima of ``Wc[:, :n_active] · head[rows[:n_active]] +
+    bias``, (Qp, N/8) f32: the CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor.  The bf16 kernel streams only the ``n_active``
+    listed rows and reads ``n_active`` on the device; the f32 kernel runs
+    over the whole head, with ``Wc`` scattered back to slot columns."""
     if not head.is_cuda:
-        return fused_head_blockmax_plain(W, head, bias)
-    Qp, D = W.shape
+        return fused_head_blockmax_plain(Wc, head, rows, n_active, bias)
+    Qp, D = Wc.shape
     D2, N = head.shape
     if head.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_head: head dtype {head.dtype} not supported")
-    if W.dtype != head.dtype or bias.dtype != torch.float32:
-        raise ValueError("fused_head: W must have the head's dtype and bias f32")
-    if W.device != head.device or bias.device != head.device:
-        raise ValueError("fused_head: W, head and bias must share one device")
-    if D2 != D or tuple(bias.shape) != (N,):
-        raise ValueError(f"fused_head: shapes W {tuple(W.shape)}, head "
-                         f"{tuple(head.shape)}, bias {tuple(bias.shape)}")
-    if Qp % _Q_TILE or N % 128 or D % 8 or N // 128 > 65535:
+    if (Wc.dtype != head.dtype or bias.dtype != torch.float32
+            or rows.dtype != torch.int32 or n_active.dtype != torch.int32):
+        raise ValueError("fused_head: Wc must have the head's dtype, bias "
+                         "f32, rows and n_active int32")
+    tensors = (("Wc", Wc), ("head", head), ("rows", rows),
+               ("n_active", n_active), ("bias", bias))
+    if any(t.device != head.device for _, t in tensors):
+        raise ValueError("fused_head: all operands must share one device")
+    if (D2 != D or tuple(bias.shape) != (N,) or tuple(rows.shape) != (D,)
+            or n_active.numel() != 1):
+        raise ValueError(f"fused_head: shapes Wc {tuple(Wc.shape)}, head "
+                         f"{tuple(head.shape)}, rows {tuple(rows.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    if Qp % _Q_TILE or N % 128 or D % 8:
         raise ValueError(f"fused_head: needs Qp % 128 == 0, N % 128 == 0, "
                          f"D % 8 == 0 (got Qp={Qp}, N={N}, D={D})")
-    for name, t in (("W", W), ("head", head), ("bias", bias)):
+    for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"fused_head: {name} must be contiguous and "
                              f"16-byte aligned")
     out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=head.device)
     lib = cuda_build.lib()
-    fn = (lib.tdr_fused_head_bf16 if head.dtype == torch.bfloat16
-          else lib.tdr_fused_head_f32)
-    err = fn(W.data_ptr(), head.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             Qp, D, N, cuda_build.current_stream(head.device))
+    stream = cuda_build.current_stream(head.device)
+    if head.dtype == torch.bfloat16:
+        err = lib.tdr_fused_head_bf16(
+            Wc.data_ptr(), head.data_ptr(), rows.data_ptr(),
+            n_active.data_ptr(), bias.data_ptr(), out.data_ptr(), Qp, D, N,
+            stream)
+    else:
+        # rows is a permutation of the slots: this puts every column back
+        W = torch.empty_like(Wc)
+        W[:, rows.long()] = Wc
+        err = lib.tdr_fused_head_f32(W.data_ptr(), head.data_ptr(),
+                                     bias.data_ptr(), out.data_ptr(), Qp, D,
+                                     N, stream)
     cuda_build.check(err, "fused_head")
     cuda_build.launches["fused_head"] += 1
     return out
@@ -118,6 +143,31 @@ def query_weight_matrix(index, qids: torch.Tensor, qw: torch.Tensor):
     return W, slot, active
 
 
+def compact_active_rows(W: torch.Tensor, slot: torch.Tensor,
+                        active: torch.Tensor, Qp: int, dtype: torch.dtype):
+    """The head slots the batch uses, on the device and without a host sync:
+    ``rows`` (D,) int32 holds the slots that some active term maps to, first
+    and ascending, then the others; ``n_active`` (1,) int32 counts the
+    first; ``Wc`` (Qp, D) in ``dtype`` has column j = ``W[:, rows[j]]``, so
+    its columns from ``n_active`` on are zero (no query weights an unused
+    slot).  A cumsum places each slot; no ``nonzero`` or boolean index."""
+    D = W.shape[1]
+    dev = W.device
+    used = torch.zeros(D, dtype=torch.int32, device=dev)
+    used.index_add_(0, torch.where(active, slot, 0).reshape(-1),
+                    active.reshape(-1).to(torch.int32))
+    used = used > 0
+    c_used = torch.cumsum(used, 0)
+    n_active = c_used[-1:].to(torch.int32)
+    pos = torch.where(used, c_used - 1,
+                      n_active + torch.cumsum(~used, 0) - 1)
+    rows = torch.empty(D, dtype=torch.int64, device=dev)
+    rows.scatter_(0, pos, torch.arange(D, device=dev))
+    Wc = torch.zeros((Qp, D), dtype=dtype, device=dev)
+    Wc[:W.shape[0]] = W[:, rows].to(dtype)
+    return rows.to(torch.int32), n_active, Wc
+
+
 def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
                     top_k: int = 10, n_valid: Optional[int] = None,
                     blockmax: Callable = fused_head_blockmax,
@@ -135,14 +185,14 @@ def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
     ng = N // SUB
 
     W, slot, active = query_weight_matrix(index, qids, qw)
-    Wp = torch.zeros((Qp, D), dtype=head.dtype, device=dev)
-    Wp[:Q] = W.to(head.dtype)
+    rows_c, n_active, Wc = compact_active_rows(W, slot, active, Qp,
+                                               head.dtype)
     limit = index.n_docs if n_valid is None else n_valid
     bias = torch.where(torch.arange(N, device=dev) < limit,
                        torch.zeros((), device=dev),
                        torch.full((), NEG, device=dev)).float()
 
-    gmax = blockmax(Wp, head, bias)[:Q]            # (Q, ng)
+    gmax = blockmax(Wc, head, rows_c, n_active, bias)[:Q]  # (Q, ng)
     k_g = min(top_k, ng)
     _, gsel = fast_topk(gmax, k_g)
     cols = (gsel[:, :, None] * SUB

@@ -143,6 +143,49 @@ def test_blockmax_plain_matches_rescore(dtype):
     np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_ragged_tiles_match_pallas(dtype):
+    """Shapes off the CUDA kernel's 128-query x 256-document tile, through
+    the plain version here: 200 queries (two query tiles, the second
+    partial) and a document count that is a multiple of 64 but not of 256.
+    chip_smoke.py holds the kernel's own ragged last tile against the plain
+    version on the card."""
+    emb, queries = _world(seed=6, n=N + 64 - 5, q=200)
+    j = jdense.build_flat_index(emb, metric="ip", dtype=dtype)
+    t = carry_flat(j)
+    assert t.embeddings.shape[0] % 64 == 0 and t.embeddings.shape[0] % 256
+    jv, jr = j_fused_flat(j.embeddings, jnp.asarray(queries), top_k=10,
+                          interpret=True, **_fused_args(j))
+    tv, tr = fused_flat.fused_flat_topk(t.embeddings, torch.from_numpy(queries),
+                                        top_k=10, **_fused_args(t))
+    assert np.all(tr.numpy() < t.n_docs)
+    # the same algorithm on both sides; the f32 rescore sums 128 products
+    # in another order
+    assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["resident", "streamed"])
+def test_flat_variants_cut_what_they_name(layout):
+    """tdr_torch/tools/flat_variants.py builds K3 with parts taken out by
+    editing its source: every anchor must stand once in fused_flat.cu, and
+    each variant must lose exactly the part it names."""
+    import os
+
+    from tdr_torch.tools import flat_variants
+
+    with open(os.path.join(cuda_build.SRC_DIR, "fused_flat.cu")) as f:
+        src = f.read()
+    v = flat_variants.variant_sources(src)
+    full = v[(layout, "full")]
+    assert ("const bool resident = false;" in full) == (layout == "streamed")
+    assert "store_group_max(score" in full and "wgmma_m64n256k32_s8(acc" in full
+    assert "store_group_max(score" not in v[(layout, "no_epilogue")]
+    assert "wgmma_m64n256k16_bf16<0>(acc" not in v[(layout, "no_mma")]
+    cut = v[(layout, "loads_only")]
+    assert "store_group_max(score" not in cut and "wgmma_m64n256k32_s8(acc" not in cut
+    assert "tma_load_2d(ring.b" in cut
+
+
 def test_n_valid_override_matches_pallas():
     emb, queries = _world(seed=5, n=N)
     j = jdense.build_flat_index(emb, metric="ip")

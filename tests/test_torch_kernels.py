@@ -216,6 +216,85 @@ def test_fused_head_plain_matches_pallas(head_dtype):
     assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=1e-6)
 
 
+def _compact_case(case, D=200, Q=24, T=12, seed=4):
+    """(slot (Q, T), active (Q, T), qw (Q, T)) for one compaction case."""
+    rng = np.random.RandomState(seed)
+    slot = rng.randint(0, D, size=(Q, T))
+    qw = rng.rand(Q, T).astype(np.float32) + 0.1
+    active = rng.rand(Q, T) < 0.7
+    if case == "mixed":
+        slot[1, :6] = [4, 9, 4, 9, 4, 9]              # duplicate slots
+        active[1, :6] = True
+        active[3] = False                             # an empty query
+        slot[rng.rand(Q, T) < 0.1] = -1               # tail terms
+    elif case == "none":
+        active[:] = False
+    elif case == "all":                               # every slot used
+        slot = (np.arange(Q * T) % D).reshape(Q, T)
+        active[:] = True
+    elif case == "ragged":             # 100 slots: not a multiple of 64
+        slot = np.concatenate([np.arange(100),
+                               rng.randint(0, 100, Q * T - 100)]).reshape(Q, T)
+        active[:] = True
+    active &= slot >= 0
+    return slot, active, qw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mixed", "none", "all", "ragged"])
+def test_compact_active_rows(case, dtype):
+    D, Q = 200, 24
+    slot, active, qw = _compact_case(case, D, Q)
+    W = np.zeros((Q, D), np.float32)
+    for q, t in zip(*np.nonzero(active)):
+        W[q, slot[q, t]] += qw[q, t]
+    dt = getattr(torch, dtype)
+    rows, n_active, Wc = fused_head.compact_active_rows(
+        torch.from_numpy(W), torch.from_numpy(slot), torch.from_numpy(active),
+        128, dt)
+    used = np.unique(slot[active])
+    n = int(n_active)
+    expect_n = {"none": 0, "all": D, "ragged": 100}.get(case, len(used))
+    assert n == len(used) == expect_n
+    assert rows.dtype == torch.int32 and n_active.dtype == torch.int32
+    assert n_active.shape == (1,) and Wc.shape == (128, D) and Wc.dtype == dt
+    r = rows.numpy()
+    np.testing.assert_array_equal(np.sort(r), np.arange(D))  # a permutation
+    np.testing.assert_array_equal(r[:n], used)        # used slots, ascending
+    np.testing.assert_array_equal(r[n:], np.setdiff1d(np.arange(D), used))
+    ref = torch.from_numpy(W[:, r]).to(dt)
+    np.testing.assert_array_equal(Wc[:Q].float().numpy(), ref.float().numpy())
+    assert not Wc[:, n:].any() and not Wc[Q:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["mixed", "none", "all", "ragged"])
+def test_compacted_plain_matches_full_head(case, dtype):
+    D, Q, N = 200, 24, 1024
+    slot, active, qw = _compact_case(case, D, Q, seed=9)
+    rng = np.random.RandomState(2)
+    head = (rng.rand(D, N) * (rng.rand(D, N) < 0.1)).astype(np.float32)
+    bias = np.where(np.arange(N) < N - 40, 0.0, fused_head.NEG).astype(np.float32)
+    W = np.zeros((Q, D), np.float32)
+    for q, t in zip(*np.nonzero(active)):
+        W[q, slot[q, t]] += qw[q, t]
+    dt = getattr(torch, dtype)
+    th = torch.from_numpy(head).to(dt)
+    rows, n_active, Wc = fused_head.compact_active_rows(
+        torch.from_numpy(W), torch.from_numpy(slot), torch.from_numpy(active),
+        128, dt)
+    tb = torch.from_numpy(bias)
+    before = dict(cuda_build.launches)
+    got = fused_head.fused_head_blockmax(Wc, th, rows, n_active, tb)
+    assert cuda_build.launches == before        # CPU tensors: plain version
+    Wp = torch.zeros((128, D), dtype=dt)
+    Wp[:Q] = torch.from_numpy(W).to(dt)
+    full = (Wp.float() @ th.float() + tb).view(128, -1, 8).amax(-1)
+    # the same products of the same rounded operands: only the f32
+    # summation order differs (zero columns skipped, rows gathered)
+    np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=1e-5, atol=1e-6)
+
+
 def test_fused_head_gate_matches_jax():
     from tdr.ops.pallas_flat import fused_head_available as j_gate
 
