@@ -38,7 +38,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
    recall@10 (untrained encoder: reported, no floor), K3 against its plain
    version at the pass's own shape, the fused engine against the plain one
    on the first 256 queries, and IVF (nlist 512, nprobe 16) on the bench
-   embeddings.
+   embeddings;
+8. the rest of the sparse path, on the phase-2 models: (a) PRF through the
+   router (F=3, E=5) with and without spell repair — one-time doc-major
+   build, K1/K2 launches of one pass, the second pass's overflowed share,
+   timed passes, recall@10 held to the JAX recalls 0.769 and 0.7975
+   (+-0.003), and the pass against the scatter path; (b) the exact_compact
+   and approx modes against exact, with tier-2 trips; (c) the en model in
+   a ``SegmentedBM25`` store: 100 added docs retrievable, a 768-query pass
+   against the main model alone, 48 / 192 / 250 deleted top hits (K2 at
+   top_k 74 / 266 / 1034) never returned, a store-level PRF pass; (d) es's
+   own top-200 re-scored by ``score_candidates_fused`` (K1) and
+   ``score_pairs`` within the bf16 head's bound; (e) the cosine -> BM25
+   cascade on an en-only corpus of 207,363 docs (seed 7), held to the JAX
+   recall 0.774 (+-0.003); (f) ``save_registry`` / ``load_registry`` of the
+   seven models, the loaded router's results equal.
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON; the last line is
@@ -246,33 +260,13 @@ def check_fused_head(index, qids, qw, label, want_active=None, reps=10):
 
 
 def check_fused_head_f32(index, qids, qw):
-    """K2's f32-head variant (CUDA-core FMA) on an f32 copy of the same head:
-    group maxima within rtol 1e-5 of the plain version."""
-    import torch
-    from tdr_torch.ops import fused_head as fh
-
-    head = index.head_rows.float()
-    D, N = head.shape
-    Q = qids.shape[0]
-    Qp = fh._round_up(Q, 128)
-    W, slot, active = fh.query_weight_matrix(index, qids, qw)
-    rows, n_active, Wc = fh.compact_active_rows(W, slot, active, Qp,
-                                                torch.float32)
-    bias = torch.where(torch.arange(N, device=head.device) < index.n_docs,
-                       0.0, fh.NEG).float()
-    args = (Wc, head, rows, n_active, bias)
-    kern = fh.fused_head_blockmax(*args)
-    plain = fh.fused_head_blockmax_plain(*args)
-    torch.cuda.synchronize()
-    err = (kern - plain).abs()
-    if not bool((err <= 1e-5 * plain.abs() + 1e-6).all()):
-        fail(f"fused_head f32: group maxima differ beyond rtol 1e-5 "
-             f"(max abs err {err.max().item():.3e})")
-    ms = time_ms(lambda: fh.fused_head_blockmax(*args), 3, warmup=1)
-    say(f"[k2 fused_head f32 head] {tuple(head.shape)}: group maxima within "
-        f"rtol 1e-5 (max abs err {err[plain > fh.NEG / 2].max().item():.3e}); "
-        f"kernel_ms={ms:.5f}")
-    del head
+    """K2's f32-head variant (CUDA-core FMA) on an f32 copy of the same
+    head, through ``check_fused_head``: group maxima and final rows against
+    the plain version, kernel, plain and library (``torch.mm`` f32 + group
+    max) times and the bound at the f32 peak."""
+    f32 = dataclasses.replace(index, head_rows=index.head_rows.float())
+    check_fused_head(f32, qids, qw, "f32 head", reps=3)
+    del f32
 
 
 def check_fused_head_ragged(index, qids, qw, n_docs=131_200):
@@ -302,12 +296,15 @@ def check_fused_head_ragged(index, qids, qw, n_docs=131_200):
 
 def same_ranking(docs_a, scores_a, docs_b, scores_b, rtol=1e-5, atol=1e-4):
     """Equal top-k lists, except that docs whose scores are equal within
-    the tolerance may swap places (the engines sum in different orders)."""
+    the tolerance may swap places (the engines sum in different orders).
+    The reference ``b`` may run deeper than ``a``, so that a swap at the
+    last rank can see its partner."""
     import numpy as np
 
-    if len(docs_a) != len(docs_b):
+    k = len(docs_a)
+    if len(docs_b) < k or len(scores_b) < k:
         return False
-    if not np.allclose(scores_a, scores_b, rtol=rtol, atol=atol):
+    if not np.allclose(scores_a, scores_b[:k], rtol=rtol, atol=atol):
         return False
     for j, (a, b) in enumerate(zip(docs_a, docs_b)):
         if a != b and np.isclose(scores_b, scores_b[j], rtol=rtol,
@@ -627,6 +624,410 @@ def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
     return rec
 
 
+def counted(run):
+    """Run ``run()`` with the launch counts set to 0 just before and read
+    just after: (result, counts)."""
+    import torch
+    from tdr_torch.ops import cuda_build
+
+    cuda_build.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(cuda_build.launches)
+
+
+def timed(run, reps):
+    """(median seconds, all seconds) of ``reps`` passes after one warm pass."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def need(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def check_recall(label, got, want, tol=0.003):
+    need(abs(got - want) <= tol + 1e-9,
+         f"{label} recall@10 {got:.4f} outside {want} +- {tol} (the JAX "
+         f"recall on this corpus)")
+
+
+def lists_match(docs_a, scores_a, docs_b, scores_b, skip=(), rtol=1e-5,
+                atol=1e-4):
+    """Indices of queries whose lists differ beyond near-ties (skipping
+    ``skip``)."""
+    return [q for q in range(len(docs_a)) if q not in skip and not
+            same_ranking(docs_a[q], scores_a[q], docs_b[q], scores_b[q],
+                         rtol=rtol, atol=atol)]
+
+
+def prf_phase(models, queries, reps, profile=False):
+    """8a: PRF through the router, with and without spell repair; the K1
+    and K2 launches of one pass, the overflowed share of the second pass,
+    and the pass against the scatter path."""
+    import torch
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.ops import tail_compact as tc
+    from tdr_torch.rank import LanguageRouter
+    from tdr_torch.rank.feedback import prf_mine, relevance_doc_weights
+    from tdr_torch.text.fast import fast_tokenize_texts
+
+    qs, langs, pos = queries.queries, queries.langs, queries.positive_docs
+    t0 = time.perf_counter()
+    for m in models.values():
+        m._doc_major()
+    torch.cuda.synchronize()
+    say(f"[8a prf] doc-major mirrors of {len(models)} indexes built in "
+        f"{time.perf_counter() - t0:.2f} s (one time, host numpy); p_doc "
+        + ", ".join(f"{l} {m._doc_major().p_doc}"
+                    for l, m in sorted(models.items())))
+    prf_models = {l: dataclasses.replace(m, prf=True) for l, m in models.items()}
+    router = LanguageRouter(prf_models, query_batch=256)
+    (docs, scores), counts = counted(
+        lambda: router.retrieve_with_scores(qs, langs, k=10))
+    need(counts["tail_compact"] > 0 and counts["fused_head"] > 0,
+         f"PRF pass missed a kernel: {counts}")
+    med, times = timed(lambda: router.retrieve(qs, langs, k=10), reps)
+    if profile:
+        profile_pass("prf", lambda: router.retrieve(qs, langs, k=10))
+    recall = recall_at_k(docs, pos, 10)
+    # per batch, as the router cuts them: the expansions of the fused path
+    # and of the scatter path (the reference below), and the second pass's
+    # overflowed share through the compaction's own bookkeeping.  A query
+    # whose expansion differs must hold a near-tie (rtol 1e-5) that the
+    # paths' summation orders may break either way: at the edge of its F
+    # feedback docs, or between two adjacent of its top E + 1 mined totals
+    plain = {l: dataclasses.replace(m, use_fused_topk=False)
+             for l, m in prf_models.items()}
+    over = n_tail = 0
+    skip = set()
+    for lang, m in sorted(prf_models.items()):
+        sel = [i for i, l in enumerate(langs) if l == lang]
+        budget = min(max(m.tail_budget, 4 * m.index.tail_pmax),
+                     16 * m.index.tail_pmax)
+        for s in range(0, len(sel), 256):
+            idx = sel[s:s + 256]
+            toks = fast_tokenize_texts([qs[i] for i in idx], lang)
+            enc = m.encode_query_tokens(toks + [[]] * (256 - len(toks)))
+            q2, w2 = m._prf_expand(*enc)
+            p2, v2 = plain[lang]._prf_expand(*enc)
+            T = enc[0].shape[1]
+            same = ((q2[:, T:] == p2[:, T:]).all(dim=1)
+                    & torch.isclose(w2[:, T:], v2[:, T:], rtol=1e-4,
+                                    atol=0).all(dim=1)).tolist()
+            F, E = m.prf_docs, m.prf_terms
+            fv, fr = m._score_encoded(*enc, F + 1)
+            w_d, fin = relevance_doc_weights(fv, F)
+            _, tot, _ = prf_mine(m._doc_major(), m.index.vocab_size, *enc,
+                                 w_d, fr[:, :F], fin, n_expand=E + 1,
+                                 min_docs=m.prf_min_docs)
+            adj = (torch.isclose(tot[:, :-1], tot[:, 1:], rtol=1e-5, atol=0)
+                   & torch.isfinite(tot[:, 1:]))
+            tie = (torch.isclose(fv[:, F - 1], fv[:, F], rtol=1e-5, atol=0)
+                   & torch.isfinite(fv[:, F])) | adj.any(dim=1)
+            for i, ok, t in zip(idx, same, tie.tolist()):
+                if not ok:
+                    need(t, f"query {i} ({lang}) expands otherwise on the "
+                            f"scatter path with no near-tie in its first "
+                            f"pass or mined totals")
+                    skip.add(i)
+            if m.index.head_size < m.index.vocab_size:
+                over += int(tc.tail_segments(m.index, q2, w2, budget)[4].sum())
+                n_tail += len(idx)
+    both = LanguageRouter({l: dataclasses.replace(m, prf=True,
+                                                  spell_correct=True)
+                           for l, m in models.items()}, query_batch=256)
+    t0 = time.perf_counter()
+    both.retrieve(qs[:1], langs[:1], k=10)
+    spell_build = time.perf_counter() - t0
+    res_both = both.retrieve(qs, langs, k=10)
+    recall_both = recall_at_k(res_both, pos, 10)
+    say(f"[8a prf] {len(qs)} queries, F=3 E=5 beta=0.3 min_docs=2: median "
+        f"{med:.4f} s of {[round(t, 4) for t in times]} -> "
+        f"{len(qs) / med:.1f} queries/s; launches in one pass {counts}; "
+        f"second pass overflowed {over} of {n_tail} tail-language queries "
+        f"({100 * over / max(n_tail, 1):.2f}%, {100 * over / len(qs):.2f}% of "
+        f"all); recall@10 {recall:.4f}; with spell repair {recall_both:.4f} "
+        f"(repairers built in {spell_build:.2f} s)")
+    check_recall("PRF", recall, 0.769)
+    check_recall("PRF + spell", recall_both, 0.7975)
+
+    # reference: the same pass scored through the scatter path (no kernel),
+    # every batch padded to 256 on both sides: the row-gather head of the
+    # small buckets contracts the (non-integral) expansion weights in f32,
+    # the product paths in the head's bf16.  Queries whose expansion
+    # differs between the two paths (each shown above to hold a near-tie)
+    # are counted and left out.
+    docs, scores = LanguageRouter(prf_models, query_batch=256,
+                                  query_buckets=()).retrieve_with_scores(
+        qs, langs, k=10)
+    (pdocs, pscores), pcounts = counted(
+        lambda: LanguageRouter(plain, query_batch=256, query_buckets=())
+        .retrieve_with_scores(qs, langs, k=10))
+    need(pcounts["tail_compact"] == 0 and pcounts["fused_head"] == 0,
+         f"the scatter reference launched a kernel: {pcounts}")
+    bad = lists_match(docs, scores, pdocs, pscores, skip)
+    need(not bad, f"PRF pass differs from the scatter path at queries "
+                  f"{bad[:10]}")
+    say(f"[8a prf reference] PRF pass == scatter-path PRF pass on "
+        f"{len(qs) - len(skip)} queries ({len(skip)} left out: their "
+        f"expansion terms differ, or weights beyond rtol 1e-4, between the "
+        f"paths, each at a near-tie)")
+    return counts
+
+
+def topk_modes_phase(models, queries, full_docs, full_scores):
+    """8b: the router in exact_compact and approx mode against exact."""
+    from tdr_torch.ops import score
+    from tdr_torch.rank import LanguageRouter
+
+    out = {}
+    for mode in ("exact_compact", "approx"):
+        router = LanguageRouter({l: dataclasses.replace(m, topk_mode=mode)
+                                 for l, m in models.items()}, query_batch=256)
+        score.reset_tier2_stats()
+        (docs, scores), counts = counted(lambda: router.retrieve_with_scores(
+            queries.queries, queries.langs, k=10))
+        st = dict(score.tier2_stats[mode])
+        bad = lists_match(docs, scores, full_docs, full_scores)
+        need(not bad, f"{mode}: lists differ from exact at queries {bad[:10]}")
+        t0 = time.perf_counter()
+        router.retrieve(queries.queries, queries.langs, k=10)
+        import torch
+        torch.cuda.synchronize()
+        say(f"[8b {mode}] {len(docs)} queries == exact mode's top-10 (but "
+            f"near-ties); tier 2 tripped on {st['trips']} of {st['batches']} "
+            f"tier-1 batches; launches {counts}; pass "
+            f"{time.perf_counter() - t0:.4f} s")
+        out[mode] = counts
+    return out
+
+
+def segmented_phase(models, queries, reps):
+    """8c: the en model in a SegmentedBM25 store: 100 added docs, passes at
+    each tombstone margin, store-level PRF."""
+    import numpy as np
+    import torch
+    from tdr_torch.rank import SegmentedBM25
+    from tdr_torch.rank.router import _gather_results
+    from tdr_torch.text import preprocess_texts
+    from tdr_torch.text.fast import fast_tokenize_texts
+    from tdr_torch.utils.config import IndexConfig
+
+    main = models["en"]
+    seg = SegmentedBM25(main=main, lang="en",
+                        index_cfg=IndexConfig(head_budget_bytes=HEAD_BUDGET))
+    new_texts = [f"freshdoc {i} zyqx{i} kwv{i} live segment update"
+                 for i in range(100)]
+    new_toks = preprocess_texts(new_texts, ["en"] * 100)
+    t0 = time.perf_counter()
+    seg.add_documents(new_toks, [f"live{i}" for i in range(100)])
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    hits = sum(seg.retrieve_tokens([[f"zyqx{i}"]], k=3)[0][:1] == [f"live{i}"]
+               for i in range(0, 100, 10))
+    need(hits == 10, f"segment store: {hits}/10 added docs came back")
+    en_q = [q for q, l in zip(queries.queries, queries.langs) if l == "en"]
+    qset = fast_tokenize_texts(en_q[:768], "en")
+
+    def main_pass():
+        pend = [main.topk_tokens_async(qset[s:s + 256], 10, pad_to=256)
+                for s in range(0, len(qset), 256)]
+        _gather_results([p[0] for p in pend], [p[1] for p in pend])
+
+    main_med, _ = timed(main_pass, reps)
+    seg_med, seg_times = timed(lambda: seg.topk_tokens(qset, k=10), reps)
+    say(f"[8c segmented] en main {main.index.n_docs} docs + 100 added in "
+        f"{add_s:.3f} s: 10/10 added docs retrievable; {len(qset)}-query "
+        f"pass median {seg_med:.4f} s of {[round(t, 4) for t in seg_times]} "
+        f"({len(qset) / seg_med:.1f} queries/s) vs the main model alone "
+        f"{main_med:.4f} s (ratio {seg_med / main_med:.2f})")
+    counts_all = {}
+    # tombstone margins: 48 dead rows -> k_seg 74, 192 -> 266, 250 -> 1034;
+    # the deleted docs are the store's own top hits.  At each margin the
+    # lists are held against the same store with a scatter-scored main
+    # segment (no kernel), which checks K2's wide-top_k rescore chunks
+    vals, rows = seg.topk_tokens(qset, k=10)
+    ids = seg.docids
+    top = list(dict.fromkeys(ids[r] for r in rows[:, 0]))
+    deleted = []
+    for n_dead, want_k in ((48, 74), (192, 266), (250, 1034)):
+        more = [d for d in top if d not in deleted][:n_dead - len(deleted)]
+        need(len(more) == n_dead - len(deleted), "too few distinct top hits")
+        seg.delete_documents(more)
+        deleted += more
+        need(seg._k_seg(10) == want_k, f"k_seg {seg._k_seg(10)} != {want_k}")
+        (vals, rows), counts = counted(lambda: seg.topk_tokens(qset, k=10))
+        need(counts["fused_head"] > 0, f"k_seg {want_k}: K2 did not launch")
+        got = {ids[r] for r, v in zip(rows.ravel(), vals.ravel())
+               if np.isfinite(v)}
+        need(not got & set(deleted), f"k_seg {want_k}: a deleted doc came back")
+        need(np.isfinite(vals).all(), f"k_seg {want_k}: fewer than 10 docs")
+        plain = dataclasses.replace(
+            seg, main=dataclasses.replace(main, use_fused_topk=False))
+        (pvals, prows), pcounts = counted(lambda: plain.topk_tokens(qset, k=11))
+        need(pcounts["fused_head"] == 0,
+             f"k_seg {want_k}: the scatter reference launched K2: {pcounts}")
+        bad = lists_match(rows.tolist(), vals, prows.tolist(), pvals)
+        need(not bad, f"k_seg {want_k}: lists differ from the scatter-scored "
+                      f"store at queries {bad[:10]}")
+        med, _ = timed(lambda: seg.topk_tokens(qset, k=10), 1)
+        counts_all[want_k] = counts
+        say(f"[8c segmented] {len(deleted)} deleted (k_seg {want_k}): none "
+            f"returned, 10 live docs per query, {len(qset)} lists == the "
+            f"scatter-scored store's; launches {counts}; pass "
+            f"{med:.4f} s; truncated queries so far {seg.truncated_queries}")
+    seg.prf = True
+    (_, _), counts = counted(lambda: seg.topk_tokens(qset[:256], k=10))
+    prf_med, prf_times = timed(lambda: seg.topk_tokens(qset[:256], k=10), 3)
+    seg.prf = False
+    say(f"[8c segmented prf] 256 queries: median {prf_med:.4f} s of "
+        f"{[round(t, 4) for t in prf_times]}; launches {counts}")
+    counts_all["prf"] = counts
+    return counts_all
+
+
+def candidates_phase(models, queries):
+    """8d: es's first 256 queries (all 80 on the 2000-query set) and their
+    own top-200, re-scored by score_candidates_fused (K1) and by
+    score_pairs."""
+    import numpy as np
+    import torch
+    from tdr_torch.ops.score import score_candidates_fused, score_pairs
+    from tdr_torch.text.fast import fast_tokenize_texts
+
+    lang = "es"
+    m = models[lang]
+    qs = [q for q, l in zip(queries.queries, queries.langs) if l == lang][:256]
+    qids, qw = m.encode_query_tokens(fast_tokenize_texts(qs, lang))
+    vals, cand = m._score_encoded(qids, qw, 200)
+    (fused, counts) = counted(lambda: score_candidates_fused(
+        m.index, qids, qw, cand, tail_budget=m.tail_budget))
+    need(counts["tail_compact"] > 0, "score_candidates_fused: K1 never ran")
+    pairs = score_pairs(m.index, qids, qw, cand)
+    head_w = torch.where(m.index.head_slot[qids.long()] >= 0, qw,
+                         torch.zeros_like(qw))
+    bound = 2.0 ** -8 * score_pairs(m.index, qids, head_w, cand) + 1e-4
+    err = (fused - pairs).abs()
+    need(bool((err <= bound).all()), f"fused re-score beyond the bf16 bound "
+         f"(max excess {(err - bound).max().item():.3e})")
+    fin = torch.isfinite(vals)
+    need(bool(torch.allclose(fused[fin], vals[fin], rtol=1e-5, atol=1e-4)),
+         "fused re-score differs from the model's own top-200 scores")
+    # the top-10 of either scoring; where a rank holds another doc, the
+    # exact (pairs) score of the fused pick must be within twice the bound
+    # of the exact score at that rank
+    _, fs = torch.sort(fused, dim=1, descending=True, stable=True)
+    pv, ps = torch.sort(pairs, dim=1, descending=True, stable=True)
+    fr, pr = cand.gather(1, fs[:, :10]), cand.gather(1, ps[:, :10])
+    pf = pairs.gather(1, fs[:, :10])
+    fr, pr, pf, pv = (t.cpu().numpy() for t in (fr, pr, pf, pv[:, :10]))
+    bnd = bound.max(dim=1).values.cpu().numpy()
+    diff = fr != pr
+    need(bool((np.abs(pf - pv)[diff] <= 2 * np.repeat(bnd, 10).reshape(
+        diff.shape)[diff]).all()), "top-10 differs beyond the bf16 bound")
+    swaps = int(diff.sum())
+    f_ms = time_ms(lambda: score_candidates_fused(m.index, qids, qw, cand,
+                                                  tail_budget=m.tail_budget), 5)
+    p_ms = time_ms(lambda: score_pairs(m.index, qids, qw, cand), 5)
+    say(f"[8d candidates] {lang}: {len(qs)} queries x their own top-200: "
+        f"score_candidates_fused within the bf16 bound of score_pairs (max "
+        f"abs diff {err.max().item():.3e}), equal to the model's scores; "
+        f"top-10 equal but {swaps} swaps inside the bound; launches "
+        f"{counts}; fused {f_ms:.3f} ms, pairs {p_ms:.3f} ms for the "
+        f"{len(qs)} x 200 pairs")
+    return counts
+
+
+def cascade_phase(reps, n_docs=207_363, n_queries=1000):
+    """8e: the cosine -> BM25 cascade at the JAX bench's configuration
+    (bench.py:357-396)."""
+    import torch
+    from tdr_torch.data import SyntheticSpec, synthetic_corpus
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.models.sparse import BM25Model, TfidfCosineModel
+    from tdr_torch.rank import CascadeRetriever
+    from tdr_torch.text.fast import fast_encode_corpus
+    from tdr_torch.utils.config import IndexConfig
+
+    t0 = time.perf_counter()
+    corpus, queries = synthetic_corpus(SyntheticSpec(
+        n_docs=n_docs, n_queries=n_queries, seed=7, hard=True,
+        ref_proportions=False, langs=("en",)))
+    t_corpus = time.perf_counter() - t0
+    cfg = IndexConfig(head_budget_bytes=1 << 30)
+    t0 = time.perf_counter()
+    vocab, *coo = fast_encode_corpus(corpus.texts, ["en"] * len(corpus.texts))
+    cand = TfidfCosineModel.from_coo(vocab, tuple(coo), corpus.docids,
+                                     lang="en", index_cfg=cfg, device=DEVICE)
+    rank = BM25Model.from_coo(vocab, tuple(coo), corpus.docids, lang="en",
+                              index_cfg=cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    cas = CascadeRetriever({"en": cand}, {"en": rank}, candidates=200,
+                           query_batch=256)
+    cas.retrieve(queries.queries[:1], ["en"], k=10)
+    res, counts = counted(lambda: cas.retrieve(queries.queries, queries.langs,
+                                               k=10))
+    need(counts["tail_compact"] > 0, f"cascade: K1 never ran {counts}")
+    med, times = timed(lambda: cas.retrieve(queries.queries, queries.langs,
+                                            k=10), reps)
+    recall = recall_at_k(res, queries.positive_docs, 10)
+    ix = rank.index
+    say(f"[8e cascade] en {ix.n_docs} docs (corpus {t_corpus:.1f} s, both "
+        f"stage indexes {t_build:.1f} s; head {ix.head_size} of vocab "
+        f"{ix.vocab_size}, tail_pmax {ix.tail_pmax}), candidates 200, batch "
+        f"256: median {med:.4f} s of {[round(t, 4) for t in times]} for "
+        f"{len(res)} queries -> {len(res) / med:.1f} queries/s, recall@10 "
+        f"{recall:.4f}; launches in one pass {counts}")
+    check_recall("cascade", recall, 0.774)
+    return counts
+
+
+def checkpoint_phase(models, queries):
+    """8f: save_registry / load_registry of the seven models; the loaded
+    router's top-10 equals the built one's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from tdr_torch.ckpt import load_registry, save_registry
+    from tdr_torch.rank import LanguageRouter
+
+    tmp = tempfile.mkdtemp(prefix="tdr_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save_registry(tmp, models)
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(tmp) for f in fs)
+        t0 = time.perf_counter()
+        loaded = load_registry(tmp, device=DEVICE)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    qs, langs = queries.queries, queries.langs
+    a_docs, a_scores = LanguageRouter(models, query_batch=256) \
+        .retrieve_with_scores(qs, langs, k=10)
+    b_docs, b_scores = LanguageRouter(loaded, query_batch=256) \
+        .retrieve_with_scores(qs, langs, k=10)
+    need(a_docs == b_docs and np.array_equal(a_scores, b_scores),
+         "the loaded registry's top-10 differs from the built one's")
+    say(f"[8f checkpoints] {len(models)} models: {n_bytes / 1e9:.3f} GB "
+        f"written in {t_save:.2f} s, loaded in {t_load:.2f} s; the loaded "
+        f"router's top-10 lists and scores equal the built one's")
+
+
 def profile_pass(label, run, trace_out=None) -> None:
     """One pass (``run()``) under torch.profiler: device time by kernel
     name, and the share of the pass's wall time the device was busy (union
@@ -687,7 +1088,7 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--reps", type=int, default=5, help="timed passes")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more sparse and one more dense pass with "
+                    help="trace one more sparse, dense and PRF pass with "
                          "torch.profiler: device time by kernel and the "
                          "device's busy share")
     ap.add_argument("--trace-out", default=None,
@@ -893,6 +1294,21 @@ def main() -> None:
     # -- phase 7: the dense path ---------------------------------------------
     rec_k3 = dense_phase(corpus, queries, bench_emb, bench_q, args.reps,
                          args.profile)
+
+    # -- phase 8: the rest of the sparse path --------------------------------
+    t8 = time.perf_counter()
+    paths = {"prf": prf_phase(models, queries, args.reps, args.profile)}
+    for mode, c in topk_modes_phase(models, queries, full_docs,
+                                    full_scores).items():
+        paths[mode] = c
+    for key, c in segmented_phase(models, queries, args.reps).items():
+        paths[f"segmented_{key}"] = c
+    paths["candidates"] = candidates_phase(models, queries)
+    paths["cascade"] = cascade_phase(3)
+    checkpoint_phase(models, queries)
+    for rec in (rec_k1, rec_k2):
+        rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
+    say(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k3, rec_k4]}))

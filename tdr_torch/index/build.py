@@ -262,11 +262,15 @@ def build_index(
     head_size: Optional[int] = None,
     df_host: Optional[np.ndarray] = None,
     device: DeviceLike = None,
+    idf: Optional[np.ndarray] = None,
+    avgdl: Optional[float] = None,
 ) -> SparseIndex:
     """Pad the COO to static shapes, run the build on ``device`` and derive
     the static tail width (``tdr.index.build.build_index``'s contract for
-    one unsharded partition; the sharded build's global-statistics
-    overrides come with the parallel layer).
+    one unsharded partition).  ``idf`` and ``avgdl`` override the local
+    statistics with corpus-global ones (the segment store's delta); an
+    injected ``idf`` fixes the vocab axis at its length, as in ``tdr``.
+    The sharded build's other overrides come with the parallel layer.
 
     Without ``df_host`` the document frequencies are counted from the COO
     on the host (one entry per unique (doc, term) pair, so the count is the
@@ -286,13 +290,17 @@ def build_index(
     di, ti, tv = _pad_coo(doc_ids, term_ids, tfs, vocab_pad, nnz_pad)
     dl = np.zeros(n_docs_pad, np.float32)
     dl[:n_docs] = doc_lens
+    if idf is not None:
+        vocab_pad = int(np.asarray(idf).shape[0])
 
     df_g = np.zeros(vocab_pad, np.float32)
     if df_host is not None:
         df_g[:len(df_host)] = np.asarray(df_host, np.float32)
     else:
         df_g[:] = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
-    idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
+    if idf is None:
+        idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
+    idf = np.asarray(idf, np.float32)
     if head_size is None:
         if index_cfg.head_min_df > 0:
             head_size = int(np.sum(df_g >= index_cfg.head_min_df))
@@ -305,7 +313,8 @@ def build_index(
     tail_df = df_g[head_slot < 0]
     tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
                                   bucketing)
-    avgdl = float(doc_lens.sum() / max(n_docs, 1))
+    if avgdl is None:
+        avgdl = float(doc_lens.sum() / max(n_docs, 1))
 
     head_slot_t = torch.as_tensor(head_slot, device=dev)
     idf_t = torch.as_tensor(idf, device=dev)

@@ -32,6 +32,7 @@ SUB = 8              # documents per group
 _LANES = 128
 _Q_TILE = 128        # the kernel's query tile; W is padded to a multiple
 _VMEM_STEP_BUDGET = 5 * 1024 * 1024
+_RESCORE_ELEMS = 1 << 24   # head values gathered per rescore step
 
 
 def _round_up(x: int, m: int) -> int:
@@ -210,8 +211,18 @@ def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
         eq_prior = ((slot[:, :, None] == slot[:, None, :]) & tri
                     & active[:, :, None] & active[:, None, :])
         w_eff = torch.where(eq_prior.any(dim=2), torch.zeros_like(w_eff), w_eff)
-    rows_cand = head[slot0[:, :, None], cols[:, None, :]].float()   # (Q, T, C)
-    scores = torch.bmm(w_eff[:, None, :], rows_cand)[:, 0] + bias[cols]
+    # (Qc, T, C) gathered head values per step: at the widest callers
+    # (T = 69 expanded terms, top_k = 1034, C = 8,272) a whole batch of 256
+    # would gather 146 M values, so the queries go in chunks
+    C = cols.shape[1]
+    q_chunk = max(1, _RESCORE_ELEMS // max(T * C, 1))
+    scores = torch.empty((Q, C), dtype=torch.float32, device=dev)
+    for q0 in range(0, Q, q_chunk):
+        s0, c0 = slot0[q0:q0 + q_chunk], cols[q0:q0 + q_chunk]
+        rows_cand = head[s0[:, :, None], c0[:, None, :]].float()   # (Qc, T, C)
+        scores[q0:q0 + q_chunk] = torch.bmm(
+            w_eff[q0:q0 + q_chunk, None, :], rows_cand)[:, 0]
+    scores = scores + bias[cols]
     vals, rows = sort_desc_by_value_then_index(scores, cols)
     k_eff = min(top_k, k_g * SUB)
     vals, rows = vals[:, :k_eff], rows[:, :k_eff]

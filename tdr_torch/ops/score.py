@@ -1,4 +1,4 @@
-"""Scoring ops over the sparse score-row index, exact mode: the port of
+"""Scoring ops over the sparse score-row index: the port of
 ``tdr/ops/score.py``.
 
 * head terms — the full-head product ``W · head`` (``_head_scores_matmul``),
@@ -7,8 +7,11 @@
   full-vocab heads;
 * tail terms — the compaction kernel (``tdr_torch.ops.tail_compact``), a
   sorted segment cumsum per document, and a top-2k merge with dedupe
-  against the head top-k (exact: see ``_fused_topk_core``);
-* overflowing queries — the exact scatter path.
+  against the head top-k (exact: see ``_fused_topk_core``), at full width
+  or, in the exact_compact / approx modes, in two tiers;
+* overflowing queries — the exact scatter path;
+* candidate re-scoring — ``score_candidates_fused`` (head product and the
+  compaction kernel) and ``score_pairs`` (binary search in the CSR).
 
 Indices returned by the top-k functions are int64 (torch's index type).
 """
@@ -21,11 +24,15 @@ import torch
 
 from tdr_torch.index.build import SparseIndex
 from tdr_torch.ops.fused_head import fused_head_topk, query_weight_matrix
+from tdr_torch.ops.scan import xla_cumsum
 from tdr_torch.ops.tail_compact import tail_compact
-from tdr_torch.ops.topk import fast_topk
+from tdr_torch.ops.topk import fast_topk, topk_grouped
 
 NEG_INF = float("-inf")
+# query language code that matches every document
+WILDCARD_LANG = -2
 _HEAD_CHUNK = 16
+_CAND_CHUNK = 64      # candidates matched per step in score_candidates_fused
 
 
 def _pad_topk(vals, idx, top_k: int):
@@ -149,10 +156,59 @@ def score_and_topk(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
     return _scatter_topk(index, qids, qw, top_k)
 
 
-def _tail_compact(*args, **kwargs):
-    raise NotImplementedError(
-        "the sort compactor is not ported yet; the port's tail engine is "
-        "tdr_torch.ops.tail_compact")
+def _tail_compact(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
+                  budget: int, max_tail_terms: int = 16):
+    """The sort compactor: tail posting slots compacted to a static
+    ``budget`` per query in two levels, from the term table alone — keep
+    at most ``max_tail_terms`` tail terms (a stable T-wide sort, tail
+    first), then at most ``budget`` posting slots (a stable sort, active
+    first).  Returns (docs (Q, B), vals (Q, B), active (Q, B), overflow
+    (Q,)); inactive slots hold doc ``n_docs_pad``.
+
+    The port's tail engine is the ``tail_compact`` kernel; this is its
+    plain, independent reference: per query, both give the same multiset
+    of (doc, value) slots."""
+    Q, T = qids.shape
+    P = index.tail_pmax
+    dev = qids.device
+    q = qids.long()
+    slot = index.head_slot[q]
+    df = index.stats.df[q].to(torch.int32)
+    start = index.indptr[q]
+    is_tail = (slot < 0) & (qw > 0)
+
+    # level 1: at most MT tail terms
+    MT = min(max_tail_terms, T)
+    order = torch.argsort((~is_tail).to(torch.int32), dim=1, stable=True)[:, :MT]
+    start_c = start.gather(1, order).long()
+    df_c = df.gather(1, order)
+    qw_c = qw.gather(1, order)
+    tail_c = is_tail.gather(1, order)
+    overflow = is_tail.sum(dim=1) > MT
+
+    # level 2: at most ``budget`` posting slots
+    offs = torch.arange(P, device=dev)
+    active = (offs < df_c[..., None]) & tail_c[..., None]          # (Q, MT, P)
+    pos = (start_c[..., None] + offs).reshape(Q, MT * P)
+    wq = qw_c[..., None].expand(Q, MT, P).reshape(Q, MT * P)
+    active = active.reshape(Q, MT * P)
+    B = min(budget, MT * P)
+    if B < MT * P:
+        overflow = overflow | (active.sum(dim=1) > B)
+        # one int32 key: (inactive flag, term index); MT <= 64
+        t_idx = torch.arange(MT, device=dev)[:, None].expand(MT, P).reshape(-1)
+        key = ((~active).to(torch.int32) << 6) | t_idx.to(torch.int32)
+        key, o = torch.sort(key, dim=1, stable=True)
+        key, pos = key[:, :B], pos.gather(1, o[:, :B])
+        active = (key >> 6) == 0
+        wq = qw_c.gather(1, (key & 63).long())
+    pos_safe = pos.clamp(0, index.postings_doc.shape[0] - 1)
+    docs = torch.where(active, index.postings_doc[pos_safe],
+                       torch.full((), index.n_docs_pad, dtype=torch.int32,
+                                  device=dev))
+    vals = torch.where(active, index.postings_w[pos_safe] * wq,
+                       torch.zeros((), device=dev))
+    return docs, vals, active, overflow
 
 
 def _merge(cand_docs, cand_vals, hv, hi, k: int):
@@ -169,13 +225,27 @@ def _merge(cand_docs, cand_vals, hv, hi, k: int):
     return mv.gather(1, sel), mdocs.gather(1, sel)
 
 
+TOPK_MODES = ("exact", "exact_compact", "approx")
+# tier-2 bookkeeping of the exact_compact / approx modes, per mode: batches
+# through tier 1 and batches whose bound tripped the full-width re-merge
+tier2_stats = {m: {"batches": 0, "trips": 0} for m in TOPK_MODES[1:]}
+
+
+def reset_tier2_stats() -> None:
+    for v in tier2_stats.values():
+        v.update(batches=0, trips=0)
+
+
+def _head_at(head: torch.Tensor, d_x: torch.Tensor, n_docs_pad: int):
+    return head.gather(1, d_x.clamp(max=n_docs_pad - 1))
+
+
 def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
                      top_k: int, tail_budget: int, n_valid=None,
                      topk_mode: str = "exact", head_engine: str = "matmul"):
-    """(vals, docs, overflow) in exact mode; see ``score_and_topk_fused``."""
-    if topk_mode != "exact":
-        raise NotImplementedError(
-            f"topk_mode={topk_mode!r} is not ported yet (only 'exact')")
+    """(vals, docs, overflow); see ``score_and_topk_fused``."""
+    if topk_mode not in TOPK_MODES:
+        raise ValueError(f"unknown topk_mode {topk_mode!r}")
     qids = qids.clamp(0, index.vocab_size - 1)
     Q = qids.shape[0]
     dev = qids.device
@@ -197,7 +267,15 @@ def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
         raise ValueError(f"unknown head_engine {head_engine!r}")
     head = mask_invalid_docs(head, index.n_docs if n_valid is None else n_valid)
     k = min(top_k, index.n_docs_pad)
-    hv, hi = fast_topk(head, k)
+    if topk_mode == "exact_compact" and index.head_size < index.vocab_size:
+        # the widened head candidate set tightens tier 1's bound base from
+        # hv[k] to hv[k_sel]; grouped-8 selection equals fast_topk exactly
+        k_sel = min(max(2 * k, 64), index.n_docs_pad)
+        hv, hi = topk_grouped(head, k_sel, group=8)
+    else:
+        # "approx": lax.approx_max_k is a TPU custom call; tdr falls back
+        # to an exact top-k off the TPU, and so does the port
+        hv, hi = fast_topk(head, k)
 
     # full-vocab head: the tail is empty, scoring is the head top-k
     if index.head_size >= index.vocab_size:
@@ -209,12 +287,16 @@ def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
     budget = min(max(tail_budget, 4 * index.tail_pmax), 16 * index.tail_pmax)
     docs, v_enc, overflow = tail_compact(index, qids, qw, budget)
     overflow = overflow | overflow_h
+    B = docs.shape[1]
     d_s, order = torch.sort(docs, dim=1, stable=True)
+    d_s = d_s.long()
     v_s = v_enc.gather(1, order)
     m_s = v_s >= 0
     v_s = v_s.clamp_min(0.0)
 
-    cs = torch.cumsum(v_s, dim=1)
+    # one launch on the card; on the CPU, XLA's blocked order, so that the
+    # tail sums equal the JAX package's bit for bit (see ops/scan.py)
+    cs = torch.cumsum(v_s, dim=1) if v_s.is_cuda else xla_cumsum(v_s)
     cs_excl = cs - v_s
     ones = torch.ones((Q, 1), dtype=torch.bool, device=dev)
     change = d_s[:, 1:] != d_s[:, :-1]
@@ -226,10 +308,52 @@ def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
                                     torch.full_like(cs_excl, NEG_INF)), dim=1)[0]
     tail_sum = cs - base                                        # valid at is_last
     live = is_last & m_s
-    head_at = head.gather(1, d_s.long().clamp(max=index.n_docs_pad - 1))
-    cand = torch.where(live, head_at + tail_sum,
-                       torch.full_like(tail_sum, NEG_INF))
-    vals_out, docs_out = _merge(d_s.long(), cand, hv, hi, k)
+    neg = torch.full((), NEG_INF, device=dev)
+
+    if topk_mode == "exact_compact":
+        m_cut = min(B, max(256, index.tail_pmax))
+    else:
+        m_cut = min(B, max(512, 2 * index.tail_pmax))
+    if topk_mode != "exact" and m_cut < B:
+        # tier 1: the M live slots with the largest tail sums; tau bounds
+        # the tail of every dropped doc.  Head candidates get their exact
+        # totals: each one's run end is binary-searched in the doc-sorted
+        # slots and its tail sum added.
+        lkey = torch.where(live, -tail_sum, torch.full_like(tail_sum, float("inf")))
+        lkey_s, lo = torch.sort(lkey, dim=1, stable=True)
+        live_c = torch.isfinite(lkey_s[:, :m_cut])
+        kM = lkey_s[:, m_cut]
+        tau = torch.where(torch.isfinite(kM), -kM, torch.zeros_like(kM)).clamp_min(0.0)
+        d_c = d_s.gather(1, lo[:, :m_cut])
+        ts_c = tail_sum.gather(1, lo[:, :m_cut])
+        posr = torch.searchsorted(d_s, hi.contiguous(), right=True) - 1
+        posr_c = posr.clamp(0, B - 1)
+        hit = (posr >= 0) & (d_s.gather(1, posr_c) == hi) & m_s.gather(1, posr_c)
+        hv_k = hv[:, -1]                      # the bound base: hv[k] or hv[k_sel]
+        hv = hv + torch.where(hit, tail_sum.gather(1, posr_c),
+                              torch.zeros((), device=dev))
+        t1_vals, t1_docs = _merge(
+            d_c, torch.where(live_c, _head_at(head, d_c, index.n_docs_pad)
+                             + ts_c, neg), hv, hi, k)
+        # every candidate's value is exact, and a non-candidate doc scores
+        # at most hv_k + tau: if the k-th value beats that, tier 1 is exact.
+        # Otherwise tier 2 re-merges with every live slot.  A host branch
+        # on the flag (lax.cond in the JAX code): this reads one bool back,
+        # so it syncs with the device once per batch.
+        risky = bool((t1_vals[:, k - 1] < hv_k + tau).any())
+        st = tier2_stats[topk_mode]
+        st["batches"] += 1
+        if risky:
+            st["trips"] += 1
+            vals_out, docs_out = _merge(
+                d_s, torch.where(live, _head_at(head, d_s, index.n_docs_pad)
+                                 + tail_sum, neg), hv, hi, k)
+        else:
+            vals_out, docs_out = t1_vals, t1_docs
+    else:
+        cand = torch.where(live, _head_at(head, d_s, index.n_docs_pad)
+                           + tail_sum, neg)
+        vals_out, docs_out = _merge(d_s, cand, hv, hi, k)
     vals_out, docs_out = _pad_topk(vals_out, docs_out, top_k)
     return vals_out, docs_out, overflow
 
@@ -247,6 +371,12 @@ def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
 
     ``head_engine``: "matmul" (full-head product), "gather" (per-term rows,
     for small batches) or "fused" (the block-max kernel, full-vocab heads).
+    ``topk_mode``: "exact" (full-width merge), "exact_compact" (``max(2k,
+    64)`` widened head candidates, grouped-8 selection, a tier-1 merge of
+    the ``max(256, tail_pmax)`` largest tail sums checked by a bound, and a
+    full-width tier 2 when it trips) or "approx" (the same tiers at ``k``
+    head candidates and ``max(512, 2 tail_pmax)`` tail sums; exact here, as
+    in ``tdr`` off the TPU).
     """
     vals, docs, overflow = _fused_topk_core(index, qids, qw, top_k,
                                             tail_budget, n_valid, topk_mode,
@@ -260,9 +390,98 @@ def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
     return vals, docs
 
 
-def score_candidates_fused(*args, **kwargs):
-    raise NotImplementedError("score_candidates_fused is not ported yet")
+def score_candidates_fused(index: SparseIndex, qids: torch.Tensor,
+                           qw: torch.Tensor, cand: torch.Tensor,
+                           tail_budget: int = 2048) -> torch.Tensor:
+    """(Q, C) scores for explicit candidate rows: the full-head product
+    gathered at the candidates, plus the ``tail_compact`` kernel's slots
+    matched against the candidates by an equality-weighted sum.  Matches
+    ``score_pairs`` up to the head's dtype rounding (bf16 heads); exact for
+    f32 heads.  Queries whose tail overflows the budget take
+    ``score_pairs`` rows."""
+    Q, C = cand.shape
+    qids = qids.clamp(0, index.vocab_size - 1)
+    cand = cand.long()
+    head = _head_scores_matmul(index, qids, qw)                # (Q, N)
+    head_at = head.gather(1, cand.clamp(0, index.n_docs_pad - 1))
+    if index.head_size >= index.vocab_size:
+        return head_at                                         # empty tail
+    budget = min(max(tail_budget, 4 * index.tail_pmax), 16 * index.tail_pmax)
+    docs, v_enc, overflow = tail_compact(index, qids, qw, budget)
+    v_pos = v_enc.clamp_min(0.0)                               # dead lanes -> 0
+    tail_at = torch.empty((Q, C), dtype=torch.float32, device=head.device)
+    zero = torch.zeros((), device=head.device)
+    for c0 in range(0, C, _CAND_CHUNK):
+        cc = cand[:, c0:c0 + _CAND_CHUNK]
+        eq = docs[:, None, :] == cc[:, :, None]                # (Q, CH, W)
+        tail_at[:, c0:c0 + cc.shape[1]] = torch.where(
+            eq, v_pos[:, None, :], zero).sum(dim=2)
+    fused = head_at + tail_at
+    # host branch on the flag (lax.cond in the JAX code): one bool read back
+    if bool(overflow.any()):
+        exact = score_pairs(index, qids, qw, cand)
+        fused = torch.where(overflow[:, None], exact, fused)
+    return fused
 
 
-def score_pairs(*args, **kwargs):
-    raise NotImplementedError("score_pairs is not ported yet")
+def score_pairs(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
+                cand: torch.Tensor) -> torch.Tensor:
+    """(Q, C) scores of explicit (query, candidate-doc) pairs from the CSR
+    alone: postings within a term are doc-sorted, so each (term, doc)
+    weight is found by a 32-step binary search in the term's segment (the
+    JAX code's steps, so the positions are the same).  f32-exact."""
+    Q, T = qids.shape
+    C = cand.shape[1]
+    q = qids.clamp(0, index.vocab_size - 1).long()
+    start = index.indptr[q].long()                             # (Q, T)
+    df = index.stats.df[q].to(torch.int64)
+    valid = qw > 0
+    docs_sorted = index.postings_doc
+    nnz = docs_sorted.shape[0]
+    lo = start[:, :, None].expand(Q, T, C)
+    hi = lo + df[:, :, None]
+    target = cand.to(docs_sorted.dtype)[:, None, :].expand(Q, T, C)
+    for _ in range(32):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        go_right = docs_sorted[mid.clamp(0, nnz - 1)] < target
+        lo, hi = torch.where(go_right, mid + 1, lo), torch.where(go_right, hi, mid)
+    found = lo.clamp(0, nnz - 1)
+    hit = ((lo < (start + df)[:, :, None]) & (docs_sorted[found] == target)
+           & valid[:, :, None])
+    w = torch.where(hit, index.postings_w[found], torch.zeros((), device=qw.device))
+    return (w * qw[:, :, None]).sum(dim=1)
+
+
+def score_batch(index: SparseIndex, qids: torch.Tensor,
+                qw: torch.Tensor) -> torch.Tensor:
+    """Full score matrix (Q, N_pad); docs >= n_docs score -inf."""
+    return mask_invalid_docs(score_batch_raw(index, qids, qw), index.n_docs)
+
+
+def topk_masked(scores: torch.Tensor, k: int):
+    return fast_topk(scores, k)
+
+
+def _topk_2stage(scores: torch.Tensor, k: int, block: int = 1024):
+    """Exact top-k in two passes (block top-k, then top-k of the winners),
+    in ``lax.top_k``'s order; the JAX code keeps it off its main path."""
+    Q, N = scores.shape
+    if k > block or N < 4 * block or N % block:
+        return fast_topk(scores, k)
+    nb = N // block
+    v1, i1 = fast_topk(scores.view(Q, nb, block), k)           # (Q, nb, k)
+    base = torch.arange(nb, device=scores.device)[None, :, None] * block
+    gi = (i1 + base).reshape(Q, nb * k)
+    v2, sel = fast_topk(v1.reshape(Q, nb * k), k)
+    return v2, gi.gather(1, sel)
+
+
+def topk_language_filtered(scores: torch.Tensor, doc_langs: torch.Tensor,
+                           query_langs: torch.Tensor, top_k: int = 10):
+    """Top-k over the docs whose language code matches the query's; a
+    query code of ``WILDCARD_LANG`` ranks every doc."""
+    q = query_langs[:, None]
+    mask = (doc_langs[None, :] == q) | (q == WILDCARD_LANG)
+    return fast_topk(torch.where(mask, scores,
+                                 torch.full((), NEG_INF, device=scores.device)),
+                     top_k)

@@ -11,6 +11,7 @@ device→host copy per ``retrieve``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Type
@@ -39,13 +40,21 @@ def build_language_models(
     tracer: Optional[Tracer] = None,
     use_native: bool = True,
     device: DeviceLike = None,
+    resume_dir: Optional[str] = None,
 ) -> Dict[str, SparseModel]:
     """Partition the corpus by language, preprocess, and build one model per
     language on ``device``, the total head budget waterfilled across them.
 
     ``use_native=True`` encodes through the C++ tokenizer
     (``tdr_torch.text.fast``) when it builds and the preprocessor is the
-    default "best" pipeline; otherwise the Python path runs."""
+    default "best" pipeline; otherwise the Python path runs.
+
+    ``resume_dir`` makes the build resumable: each finished language model
+    is checkpointed there (``tdr``'s sparse checkpoint format), and
+    languages already complete there are loaded instead of rebuilt, their
+    heads charged against the budget first."""
+    from tdr_torch.ckpt import load_sparse_model, save_sparse_model
+
     dev = resolve_device(device)
     pp = preprocessor or Preprocessor("best")
     tracer = tracer or Tracer("build_language_models")
@@ -74,19 +83,34 @@ def build_language_models(
             coo = encode_docs(toks, vocab)
         return lang, (vocab, coo, docids, len(rows))
 
+    models: Dict[str, SparseModel] = {}
+    to_encode = []
+    for lang, rows in sorted(by_lang.items()):
+        lang_dir = os.path.join(resume_dir, lang) if resume_dir else None
+        if lang_dir and os.path.exists(os.path.join(lang_dir, "meta.json")):
+            models[lang] = load_sparse_model(lang_dir, dev)
+            log.info("resumed '%s' model from %s", lang, lang_dir)
+        else:
+            to_encode.append((lang, rows))
+
     # languages encode concurrently: the C++ tokenizer releases the GIL
-    to_encode = sorted(by_lang.items())
     encoded: Dict[str, tuple] = {}
-    with tracer.span("encode:all", n_langs=len(to_encode)):
-        with ThreadPoolExecutor(max_workers=max(1, min(8, len(to_encode)))) as ex:
-            for lang, payload in ex.map(lambda a: _encode_one(*a), to_encode):
-                encoded[lang] = payload
+    if to_encode:
+        with tracer.span("encode:all", n_langs=len(to_encode)):
+            with ThreadPoolExecutor(max_workers=min(8, len(to_encode))) as ex:
+                for lang, payload in ex.map(lambda a: _encode_one(*a),
+                                            to_encode):
+                    encoded[lang] = payload
 
     stats = {lang: (full_head_bytes(vocab.size, n, index_cfg), float(n))
              for lang, (vocab, _, _, n) in encoded.items()}
-    allocs = _waterfill_head_budget(index_cfg.head_budget_bytes, stats)
+    # resumed heads already occupy the device: charge them first
+    resumed_bytes = sum(m.index.head_rows.numel()
+                        * m.index.head_rows.element_size()
+                        for m in models.values())
+    allocs = _waterfill_head_budget(
+        max(index_cfg.head_budget_bytes - resumed_bytes, 0), stats)
 
-    models: Dict[str, SparseModel] = {}
     for lang, (vocab, coo, docids, n) in encoded.items():
         lang_cfg = dataclasses.replace(index_cfg, head_budget_bytes=allocs[lang])
         with tracer.span(f"build:{lang}", n_docs=n):
@@ -99,6 +123,8 @@ def build_language_models(
         log.info("built %s model for '%s': %d docs, vocab %d, head %d, tail_pmax %d",
                  model_cls.__name__, lang, n, models[lang].vocab.size,
                  models[lang].index.head_size, models[lang].index.tail_pmax)
+        if resume_dir is not None:
+            save_sparse_model(os.path.join(resume_dir, lang), models[lang])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return models
@@ -159,9 +185,18 @@ def _gather_results(vals_list: List[torch.Tensor], rows_list: List[torch.Tensor]
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Stack the per-batch (B, k) results on the device and bring them to
     the host in ONE copy: scores travel as their int32 bit patterns beside
-    the int32 rows, so one tensor holds both."""
-    packed = torch.stack([torch.stack(vals_list).view(torch.int32),
-                          torch.stack(rows_list).to(torch.int32)])
+    the int32 rows, so one tensor holds both.  Batches of other shapes are
+    padded on the device to the largest (scores with -inf, rows with 0);
+    callers slice each back to its own rows and width."""
+    b = max(v.shape[0] for v in vals_list)
+    w = max(v.shape[1] for v in vals_list)
+    pad = torch.nn.functional.pad
+    vals = [pad(v.float(), (0, w - v.shape[1], 0, b - v.shape[0]),
+                value=float("-inf")) for v in vals_list]
+    rows = [pad(r.to(torch.int32), (0, w - r.shape[1], 0, b - r.shape[0]))
+            for r in rows_list]
+    packed = torch.stack([torch.stack(vals).view(torch.int32),
+                          torch.stack(rows)])
     host = packed.cpu().numpy()
     return host[0].view(np.float32), host[1]
 
@@ -216,34 +251,32 @@ class LanguageRouter:
 
     def _batches_resolved(self, queries, langs, k):
         """Dispatch every batch, then resolve all of them with one
-        device→host copy: [(model, sel, vals (n, k), rows (n, k))]."""
-        pending = []
+        device→host copy: [(model, sel, vals (n, k), rows (n, k))].  A
+        model without ``topk_tokens_async`` (the segment store) resolves
+        its batch itself."""
+        pending, resolved = [], []
         for lang, q_idx in self._group(langs, queries).items():
             model = self.models[lang]
             toks = self._tokenize(queries, q_idx, lang)
             for s in range(0, len(q_idx), self.query_batch):
                 chunk = toks[s:s + self.query_batch]
                 sel = q_idx[s:s + self.query_batch]
-                vals, rows, n = model.topk_tokens_async(
-                    chunk, k, pad_to=self._pad_target(len(chunk)))
-                pending.append((model, sel, vals, rows, n))
-        if not pending:
-            return []
-        # batches of different bucket sizes pad to the largest on the device
-        # so everything stacks into the one copy
-        b_max = max(p[2].shape[0] for p in pending)
-        vals_l, rows_l = [], []
-        for _, _, vals, rows, _ in pending:
-            b = vals.shape[0]
-            if b < b_max:
-                vals = torch.nn.functional.pad(vals, (0, 0, 0, b_max - b),
-                                               value=float("-inf"))
-                rows = torch.nn.functional.pad(rows, (0, 0, 0, b_max - b))
-            vals_l.append(vals)
-            rows_l.append(rows)
-        vals_all, rows_all = _gather_results(vals_l, rows_l)
-        return [(model, sel, vals_all[i][:n], rows_all[i][:n])
-                for i, (model, sel, _, _, n) in enumerate(pending)]
+                pad_to = self._pad_target(len(chunk))
+                if hasattr(model, "topk_tokens_async"):
+                    vals, rows, n = model.topk_tokens_async(chunk, k,
+                                                            pad_to=pad_to)
+                    pending.append((model, sel, vals, rows, n))
+                else:
+                    vals, rows = model.topk_tokens(chunk, k, pad_to=pad_to)
+                    resolved.append((model, sel, vals, rows))
+        if pending:
+            vals_all, rows_all = _gather_results([p[2] for p in pending],
+                                                 [p[3] for p in pending])
+            for i, (model, sel, vals, _, n) in enumerate(pending):
+                w = vals.shape[1]
+                resolved.append((model, sel, vals_all[i][:n, :w],
+                                 rows_all[i][:n, :w]))
+        return resolved
 
     @staticmethod
     def _map_docids(model, vals: np.ndarray, rows: np.ndarray) -> List[List[str]]:

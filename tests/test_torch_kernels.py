@@ -216,6 +216,25 @@ def test_fused_head_plain_matches_pallas(head_dtype):
     assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("top_k,q_chunk", [(10, 3), (266, 7), (1034, 1)])
+def test_fused_head_chunked_rescore_matches_pallas(top_k, q_chunk, monkeypatch):
+    """The rescore in query chunks (ragged last chunk at 3 and 7 of 20
+    queries, one query a step at the widest top_k) equals the whole-batch
+    rescore exactly and tdr's within the 16-product rounding."""
+    j, t = _big_index("float32")
+    qids, qw = _big_queries()
+    q, w = torch.from_numpy(qids), torch.from_numpy(qw)
+    whole_v, whole_r = fused_head.fused_head_topk(t, q, w, top_k=top_k)
+    T, C = qids.shape[1], 8 * top_k
+    monkeypatch.setattr(fused_head, "_RESCORE_ELEMS", q_chunk * T * C)
+    tv, tr = fused_head.fused_head_topk(t, q, w, top_k=top_k)
+    np.testing.assert_array_equal(tv.numpy(), whole_v.numpy())
+    np.testing.assert_array_equal(tr.numpy(), whole_r.numpy())
+    jv, jr = j_fused_head_topk(j, jnp.asarray(qids), jnp.asarray(qw),
+                               top_k=top_k, interpret=True)
+    assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=1e-6)
+
+
 def _compact_case(case, D=200, Q=24, T=12, seed=4):
     """(slot (Q, T), active (Q, T), qw (Q, T)) for one compaction case."""
     rng = np.random.RandomState(seed)
@@ -353,16 +372,33 @@ def test_score_and_topk_fused_fused_engine_matches_jax():
     assert_same_topk(tv, tr, jv, jr)
 
 
-def test_unported_modes_raise():
-    vocab, coo, qids, qw = _world(2, n_queries=4)
-    t = carry(build_index(*coo, vocab.size, index_cfg=TAIL_CFG, head_size=16))
-    q, w = torch.from_numpy(qids), torch.from_numpy(qw)
-    for mode in ("approx", "exact_compact"):
-        with pytest.raises(NotImplementedError):
-            t_fused(t, q, w, topk_mode=mode)
+@pytest.mark.parametrize("case", ["approx", "exact_compact", "_tail_compact",
+                                  "score_candidates_fused", "score_pairs"])
+def test_unported_modes_raise(case):
+    """Once "not ported yet": each of these now runs and matches tdr
+    (tail sums through a cumsum difference within 1e-4 absolute, see
+    test_torch_score_modes.py; the rest within rtol 1e-6 or bit for bit)."""
+    from tdr.ops import score as jscore
     from tdr_torch.ops import score
 
-    for fn in (score._tail_compact, score.score_candidates_fused,
-               score.score_pairs):
-        with pytest.raises(NotImplementedError):
-            fn(t, q, w)
+    vocab, coo, qids, qw = _world(2, n_queries=4)
+    j = build_index(*coo, vocab.size, index_cfg=TAIL_CFG, head_size=16)
+    t = carry(j)
+    q, w = torch.from_numpy(qids), torch.from_numpy(qw)
+    jq, jw = jnp.asarray(qids), jnp.asarray(qw)
+    cand = np.random.RandomState(1).randint(0, t.n_docs, (4, 20)).astype(np.int32)
+    if case in ("approx", "exact_compact"):
+        jv, jr = j_fused(j, jq, jw, topk_mode=case,
+                         tail_engine="pallas_interpret")
+        tv, tr = t_fused(t, q, w, topk_mode=case)
+        assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=1e-4)
+    elif case == "_tail_compact":
+        got = score._tail_compact(t, q, w, 64)
+        want = jscore._tail_compact(j, jq, jw, 64)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    else:
+        got = getattr(score, case)(t, q, w, torch.from_numpy(cand))
+        want = getattr(jscore, case)(j, jq, jw, jnp.asarray(cand))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
