@@ -15,7 +15,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
    bound.  fused_head on en: the first batch of 256 queries, the last
    (partial) batch, a batch with no head term (n_active = 0) and a batch
    of 16 distinct slots per query covering every head row (n_active = D),
-   and a head slice of 131,200 documents (the last tile half empty);
+   and a head slice of 131,200 documents (the last tile half empty); the
+   same on an f32 copy of the en head through K2's f32 body (3xTF32 on the
+   tensor cores: bound at three TF32 products, and at the f32 peak);
    tail_compact on es at Q=256 and Q=1;
 3b. K3 (fused_flat) against its plain version at the dense bench's shape
    (262,144 random unit embeddings, D=256, Q=256): {bf16, int8, f32} x
@@ -52,10 +54,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
    ``score_pairs`` within the bf16 head's bound; (e) the cosine -> BM25
    cascade on an en-only corpus of 207,363 docs (seed 7), held to the JAX
    recall 0.774 (+-0.003); (f) ``save_registry`` / ``load_registry`` of the
-   seven models, the loaded router's results equal.
+   seven models, the loaded router's results equal;
+9. f32 operands through the f32 bodies of K2 and K3: (a) after phase 8,
+   with the bf16 models freed, ``build_language_models`` at
+   ``head_dtype="float32"`` under an 8 GiB head budget (the 4 GiB bf16
+   build's slots; en a full-vocab f32 head), the 2000-query pass (K2 f32
+   once per en batch, median of 5, recall@10 reported, no JAX number to
+   hold it to) and its lists against the scatter path; (b) inside phase 7,
+   an f32 copy of the dense index through K3's f32 body at the pass's
+   shape (``check_fused_flat``, one ``flat_search`` pass, lists against
+   the plain engine).
 
 Each kernel must have launched in the pass that drives it.
-The second-to-last line is the ``{"kernels": [...]}`` JSON; the last line is
+The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
+K3, K3 f32, K4); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``tdr``.
 """
 
@@ -63,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -74,6 +87,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12            # dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12              # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12            # dense tf32 tensor cores
 PEAK_INT8_OPS = 1979e12             # dense int8 tensor cores
 RECALL_FLOOR = 0.75
 N_DOCS = 268_022                    # the full corpus: never cut
@@ -192,7 +206,10 @@ def check_fused_head(index, qids, qw, label, want_active=None, reps=10):
     1e-5 and the final (vals, rows) of ``fused_head_topk`` equal; fails
     unless n_active is ``want_active`` where that is given.  Returns its
     record; ``bound_ms`` is the active-row bound (each distinct row read
-    once), the whole-head bound is printed beside it."""
+    once), the whole-head bound is printed beside it.  An f32 head runs the
+    3xTF32 body: its record is ``fused_head_f32``, ``bound_ms`` counts its
+    three TF32 products at the tensor cores' TF32 rate and
+    ``f32_bound_ms`` one product at the f32 peak."""
     import torch
     from tdr_torch.ops import fused_head as fh
 
@@ -228,45 +245,64 @@ def check_fused_head(index, qids, qw, label, want_active=None, reps=10):
     # the library yardstick: the whole-head product of the uncompacted W
     Wp = torch.zeros_like(Wc)
     Wp[:, rows.long()] = Wc
-    if head.dtype == torch.bfloat16:
+    f32 = head.dtype == torch.float32
+    if f32:
+        lib_fn = lambda: (Wp @ head + bias).view(Qp, -1, 8).amax(-1)  # noqa: E731
+        peak, products = PEAK_TF32_FLOPS, 3
+    else:
         lib_fn = lambda: (torch.mm(Wp, head, out_dtype=torch.float32)  # noqa: E731
                           + bias).view(Qp, -1, 8).amax(-1)
-        peak = PEAK_BF16_FLOPS
-    else:
-        lib_fn = lambda: (Wp @ head + bias).view(Qp, -1, 8).amax(-1)  # noqa: E731
-        peak = PEAK_F32_FLOPS
+        peak, products = PEAK_BF16_FLOPS, 1
     library_ms = time_ms(lib_fn, reps)
     es = head.element_size()
     io = N * 4 + Q * (N // 8) * 4                 # bias in, group maxima out
 
-    def bound(d):
+    def bound(d, peak=peak, products=products):
         t_b = (d * N * es + Q * d * es + d * 4 + io) / PEAK_BYTES_PER_S * 1e3
-        t_o = 2.0 * Q * d * N / peak * 1e3
+        t_o = products * 2.0 * Q * d * N / peak * 1e3
         return max((t_b, "bytes"), (t_o, "operations"))
 
     bound_ms, bound_by = bound(n_act)
     whole_ms, whole_by = bound(D)
+    rec = dict(name="fused_head_f32" if f32 else "fused_head", route="cuda",
+               source="tdr_torch/csrc/fused_head.cu",
+               replaces="tdr/ops/pallas_flat.py:284", launches=0,
+               max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    kind = "3xTF32, " if f32 else ""
+    extra = ""
+    if f32:
+        rec["f32_bound_ms"] = bound(n_act, PEAK_F32_FLOPS, 1)[0]
+        extra = (f" f32_peak_bound_ms={rec['f32_bound_ms']:.5f} (whole head "
+                 f"{bound(D, PEAK_F32_FLOPS, 1)[0]:.5f})")
     say(f"[k2 fused_head {label}] head {tuple(head.shape)} {head.dtype}, "
         f"Q={Q} (Qp={Qp}), n_active={n_act} of {D} rows: group maxima "
         f"within rtol 1e-5 (max abs err {max_abs_err:.3e}), final rows "
         f"equal; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}, "
-        f"active rows) whole_head_bound_ms={whole_ms:.5f} ({whole_by})")
-    return dict(name="fused_head", route="cuda",
-                source="tdr_torch/csrc/fused_head.cu",
-                replaces="tdr/ops/pallas_flat.py:284", launches=0,
-                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({kind}"
+        f"{bound_by}, active rows) whole_head_bound_ms={whole_ms:.5f} "
+        f"({whole_by}){extra}")
+    return rec
 
 
-def check_fused_head_f32(index, qids, qw):
-    """K2's f32-head variant (CUDA-core FMA) on an f32 copy of the same
-    head, through ``check_fused_head``: group maxima and final rows against
+def check_fused_head_f32(index, cases):
+    """K2's f32 body (3xTF32 on the tensor cores) on an f32 copy of the
+    same head, through ``check_fused_head`` at each of ``cases`` ((qids,
+    qw, label, want_active), the first the record's), then at full
+    coverage and on the ragged slice: group maxima and final rows against
     the plain version, kernel, plain and library (``torch.mm`` f32 + group
-    max) times and the bound at the f32 peak."""
+    max) times and both bounds.  Returns the first case's record."""
     f32 = dataclasses.replace(index, head_rows=index.head_rows.float())
-    check_fused_head(f32, qids, qw, "f32 head", reps=3)
+    recs = [check_fused_head(f32, qids, qw, f"f32 {label}", want_active=want,
+                             reps=5)
+            for qids, qw, label, want in cases]
+    cover_ix, cover_qids, cover_qw = cover_batch(f32)
+    check_fused_head(cover_ix, cover_qids, cover_qw, "f32 full coverage",
+                     want_active=f32.head_rows.shape[0], reps=3)
+    del cover_ix
+    check_fused_head_ragged(f32, *cases[0][:2])
     del f32
+    return recs[0]
 
 
 def check_fused_head_ragged(index, qids, qw, n_docs=131_200):
@@ -287,7 +323,8 @@ def check_fused_head_ragged(index, qids, qw, n_docs=131_200):
     if not bool((err <= 1e-5 * plain.abs() + 1e-6).all()):
         fail(f"fused_head ragged N={n_docs}: group maxima differ beyond rtol "
              f"1e-5 (max abs err {err.max().item():.3e})")
-    say(f"[k2 fused_head ragged] head {tuple(head.shape)} (N % 256 = "
+    say(f"[k2 fused_head ragged] head {tuple(head.shape)} {head.dtype} "
+        f"(N % 256 = "
         f"{n_docs % 256}), Q={qids.shape[0]}, n_active={int(n_active.item())}"
         f": group maxima within rtol 1e-5 (max abs err "
         f"{err.max().item():.3e})")
@@ -373,7 +410,10 @@ def check_fused_flat(index, q, label, n_valid=None, reps=20):
     """K3 against its plain version at one batch: group maxima within rtol
     1e-5 (atol 1e-5: scores near 0 sum in another order), and the final
     (vals, rows) of ``fused_flat_topk`` equal to the plain engine's
-    (product + top-k) except swaps inside near-ties.  Returns its record."""
+    (product + top-k) except swaps inside near-ties.  Returns its record;
+    f32 embeddings run the 3xTF32 body: ``fused_flat_f32``, with
+    ``bound_ms`` at three TF32 products and ``f32_bound_ms`` at the f32
+    peak."""
     import torch
     from tdr_torch.models.dense import flat_search
     from tdr_torch.ops import fused_flat as ff
@@ -424,7 +464,7 @@ def check_fused_flat(index, q, label, n_valid=None, reps=20):
     else:
         lib_fn = lambda: (alpha * (args[0] @ emb.T)  # noqa: E731
                           + bias).view(Qp, -1, 8).amax(-1)
-        peak = PEAK_F32_FLOPS
+        peak = PEAK_TF32_FLOPS / 3          # three TF32 products
     library_ms = time_ms(lib_fn, reps)
     # the function's work is Q queries; the pad rows up to Qp are not
     esize = emb.element_size()
@@ -433,17 +473,25 @@ def check_fused_flat(index, q, label, n_valid=None, reps=20):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 2.0 * Q * D * N / peak * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    f32 = emb.dtype == torch.float32
+    rec = dict(name="fused_flat_f32" if f32 else "fused_flat", route="cuda",
+               source="tdr_torch/csrc/fused_flat.cu",
+               replaces="tdr/ops/pallas_flat.py:123", launches=0,
+               max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    extra = ""
+    if f32:
+        rec["f32_bound_ms"] = max(t_bytes,
+                                  2.0 * Q * D * N / PEAK_F32_FLOPS * 1e3)
+        extra = (f"; 3xTF32 bound; f32_peak_bound_ms="
+                 f"{rec['f32_bound_ms']:.5f}")
     say(f"[k3 fused_flat {label}] emb {tuple(emb.shape)} {emb.dtype}, "
         f"metric {index.metric}, Q={Q} (Qp={Qp}): group maxima within rtol "
         f"1e-5 (max abs err {max_abs_err:.3e}), final rows equal but for "
         f"near-ties; kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
         f"library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; "
-        f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms)")
-    return dict(name="fused_flat", route="cuda",
-                source="tdr_torch/csrc/fused_flat.cu",
-                replaces="tdr/ops/pallas_flat.py:123", launches=0,
-                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        f"bytes {t_bytes:.5f} ms, operations {t_ops:.5f} ms{extra})")
+    return rec
 
 
 def overflow_batch(index, qids, qw):
@@ -521,7 +569,8 @@ def check_head_scores(index, qids, qw, label, reps=10):
 
 
 def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
-    """Phase 7: the dense path; returns K3's record at the pass's shape."""
+    """Phase 7: the dense path, and 9b: K3's f32 body at the pass's shape;
+    returns K3's records (bf16, f32) at the pass's shape."""
     import numpy as np
     import torch
     from tdr_torch import native
@@ -602,6 +651,7 @@ def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
             fail(f"dense reference: query {i} differs between engines")
     say(f"[dense reference] 256 queries: fused engine == plain engine "
         f"({int((fr != pr).sum())} rank slots inside near-ties)")
+    rec_f32 = f32_flat_phase(dense.flat, q_enc, reps)
 
     # IVF on the bench embeddings (bench.py:896-900)
     t0 = time.perf_counter()
@@ -621,7 +671,102 @@ def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
         f"queries -> {bq.shape[0] / ivf_ms * 1e3:.1f} queries/s, top-10 "
         f"overlap with exact "
         f"{overlap:.4f}")
+    return rec, rec_f32
+
+
+def f32_flat_phase(flat, q_enc, reps):
+    """9b: an f32 copy of the dense pass's index through K3's f32 body
+    (3xTF32): ``check_fused_flat`` at the pass's shape, one ``flat_search``
+    of all the queries (launches counted, median of ``reps`` passes after a
+    warm one), its lists against the plain engine's.  Returns the record."""
+    import numpy as np
+    from tdr_torch.models.dense import flat_search
+
+    f32 = dataclasses.replace(flat, embeddings=flat.embeddings.float())
+    rec = check_fused_flat(f32, q_enc, "f32 dense pass", reps=5)
+    (fv, fr), counts = counted(lambda: flat_search(f32, q_enc, 10))
+    need(counts["fused_flat_f32"] == 1 and counts["fused_flat"] == 0,
+         f"9b: the f32 search did not run K3's f32 body once: {counts}")
+    rec["launches"] = counts["fused_flat_f32"]
+    med, times = timed(lambda: flat_search(f32, q_enc, 10), reps)
+    pv, pr = flat_search(f32, q_enc, 10, engine="plain")
+    fv, fr, pv, pr = (t.cpu().numpy() for t in (fv, fr, pv, pr))
+    need(bool(np.isfinite(fv).all()), "9b: non-finite scores")
+    bad = lists_match(fr, fv, pr, pv, atol=1e-5)
+    need(not bad, f"9b: the f32 search differs from the plain engine at "
+                  f"queries {bad[:10]}")
+    nq = q_enc.shape[0]
+    say(f"[9b f32 flat] emb {tuple(f32.embeddings.shape)} f32 "
+        f"({f32.embeddings.numel() * 4 / 1e6:.1f} MB), {nq} queries: "
+        f"launches {counts}; flat_search median {med * 1e3:.3f} ms of "
+        f"{[round(t * 1e3, 3) for t in times]} -> {nq / med:.1f} queries/s; "
+        f"lists == the plain engine's ({int((fr != pr).sum())} rank slots "
+        f"inside near-ties)")
+    del f32
     return rec
+
+
+def f32_heads_phase(corpus, queries, reps, bf16_med, profile=False):
+    """9a: the sparse pass at ``head_dtype="float32"`` under an 8 GiB head
+    budget (the 4 GiB bf16 build's head slots): en a full-vocab f32 head
+    through K2's f32 body.  Build seconds, launches of one pass (K2 f32
+    once per en batch), the median of ``reps`` passes after a warm one
+    against the bf16 pass's ``bf16_med`` of this process, recall@10, and
+    the lists against the same models on the scatter path
+    (``use_fused_topk=False``, no kernel).  Returns the pass's counts."""
+    import torch
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.ops.fused_head import fused_head_available
+    from tdr_torch.rank import LanguageRouter, build_language_models
+    from tdr_torch.utils.config import IndexConfig
+
+    t0 = time.perf_counter()
+    models = build_language_models(
+        corpus, index_cfg=IndexConfig(head_dtype="float32",
+                                      head_budget_bytes=2 * HEAD_BUDGET),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    en = models["en"].index
+    need(en.head_rows.dtype == torch.float32
+         and en.head_size == en.vocab_size and fused_head_available(en),
+         f"9a: en is not a full-vocab f32 head on the fused engine "
+         f"({en.head_rows.dtype}, head {en.head_size} of {en.vocab_size})")
+    qs, langs = queries.queries, queries.langs
+    want = -(-sum(1 for l in langs if l == "en") // 256)
+    router = LanguageRouter(models, query_batch=256)
+    (docs, scores), counts = counted(
+        lambda: router.retrieve_with_scores(qs, langs, k=10))
+    need(counts["fused_head_f32"] == want and counts["fused_head"] == 0,
+         f"9a: K2's f32 body launched {counts['fused_head_f32']} times, "
+         f"{want} expected (one per en batch): {counts}")
+    med, times = timed(lambda: router.retrieve(qs, langs, k=10), reps)
+    if profile:
+        profile_pass("sparse f32 heads",
+                     lambda: router.retrieve(qs, langs, k=10))
+    recall = recall_at_k(docs, queries.positive_docs, 10)
+    need(all(len(d) == 10 for d in docs), "9a: a query returned fewer than "
+                                          "10 docs")
+    plain = {l: dataclasses.replace(m, use_fused_topk=False)
+             for l, m in models.items()}
+    (pdocs, pscores), pcounts = counted(
+        lambda: LanguageRouter(plain, query_batch=256).retrieve_with_scores(
+            qs, langs, k=10))
+    need(pcounts["fused_head_f32"] == 0 and pcounts["tail_compact"] == 0,
+         f"9a: the scatter reference launched a kernel: {pcounts}")
+    bad = lists_match(docs, scores, pdocs, pscores)
+    need(not bad, f"9a: the f32-head pass differs from the scatter path at "
+                  f"queries {bad[:10]}")
+    heads = ", ".join(f"{l} {m.index.head_size}"
+                      for l, m in sorted(models.items()))
+    say(f"[9a f32 heads] build {build_s:.1f} s (head slots: {heads}); "
+        f"{len(qs)} queries: median {med:.4f} s of "
+        f"{[round(t, 4) for t in times]} -> {len(qs) / med:.1f} queries/s "
+        f"({med / bf16_med:.2f}x the bf16 pass's {bf16_med:.4f} s in this "
+        f"process); recall@10 {recall:.4f}; launches in one pass {counts}; "
+        f"lists == the scatter path's")
+    del router, models, plain
+    return counts
 
 
 def counted(run):
@@ -1088,7 +1233,8 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--reps", type=int, default=5, help="timed passes")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more sparse, dense and PRF pass with "
+                    help="trace one more sparse, dense, PRF and f32-head "
+                         "sparse pass with "
                          "torch.profiler: device time by kernel and the "
                          "device's busy share")
     ap.add_argument("--trace-out", default=None,
@@ -1168,18 +1314,21 @@ def main() -> None:
     k2_ix = models[k2_lang].index
     qids, qw = batch(k2_lang, 256)
     rec_k2 = check_fused_head(k2_ix, qids, qw, f"{k2_lang} Q=256")
-    check_fused_head_f32(k2_ix, qids, qw)
     check_fused_head(k2_ix, qids, torch.zeros_like(qw), "no head term",
                      want_active=0)
     n_k2 = sum(1 for l in queries.langs if l == k2_lang)
     last = (n_k2 - 1) % 256 + 1                 # the router's last batch
-    check_fused_head(k2_ix, *batch(k2_lang, last, n_k2 - last),
-                     f"{k2_lang} last batch Q={last}")
+    last_batch = batch(k2_lang, last, n_k2 - last)
+    check_fused_head(k2_ix, *last_batch, f"{k2_lang} last batch Q={last}")
     cover_ix, cover_qids, cover_qw = cover_batch(k2_ix)
     check_fused_head(cover_ix, cover_qids, cover_qw, "full coverage",
                      want_active=k2_ix.head_rows.shape[0])
     del cover_ix
     check_fused_head_ragged(k2_ix, qids, qw)
+    rec_k2f = check_fused_head_f32(k2_ix, [
+        (qids, qw, f"{k2_lang} Q=256", None),
+        (qids, torch.zeros_like(qw), "no head term", 0),
+        (*last_batch, f"{k2_lang} last batch Q={last}", None)])
     qids, qw = batch(k1_lang, 256)
     rec_k1 = check_tail_compact(models[k1_lang].index, qids, qw, "Q=256")
     qids, qw = batch(k1_lang, 1)
@@ -1292,8 +1441,8 @@ def main() -> None:
     rec_k2["launches"] = counts["fused_head"]
 
     # -- phase 7: the dense path ---------------------------------------------
-    rec_k3 = dense_phase(corpus, queries, bench_emb, bench_q, args.reps,
-                         args.profile)
+    rec_k3, rec_k3f = dense_phase(corpus, queries, bench_emb, bench_q,
+                                  args.reps, args.profile)
 
     # -- phase 8: the rest of the sparse path --------------------------------
     t8 = time.perf_counter()
@@ -1310,8 +1459,22 @@ def main() -> None:
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
     say(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
+    # -- phase 9a: the sparse pass at f32 heads ------------------------------
+    t9 = time.perf_counter()
+    del router, models, k2_ix, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_counts = f32_heads_phase(corpus, queries, args.reps, med,
+                                 args.profile)
+    rec_k2f["launches"] = f32_counts["fused_head_f32"]
+    rec_k2f["launches_by_path"] = {"sparse_f32_heads":
+                                   f32_counts["fused_head_f32"]}
+    rec_k3f["launches_by_path"] = {"dense_f32": rec_k3f["launches"]}
+    say(f"phase 9a: {time.perf_counter() - t9:.1f} s")
+
     say(f"total {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k3, rec_k4]}))
+    say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,
+                                rec_k4]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel `fused_flat_topk` (tdr/ops/pallas_flat.py, body
 // `_make_kernel`).  For queries q and documents n it computes
-//     s[q, n] = alpha * dot(Q[q], E[n]) + bias[n]                 (bf16, f32)
+//     s[q, n] = alpha * dot(Q[q], E[n]) + bias[n]       (bf16, f32 in 3xTF32)
 //     s[q, n] = alpha * ((acc[q, n] * dscale[n]) * qscale[q]) + bias[n]  (int8)
 // with acc the exact int32 dot product of the int8 codes, and writes only
 // the maximum over each group of 8 consecutive documents, out[q, n / 8].
@@ -62,9 +62,20 @@
 //     over the wgmma accumulator (hopper.cuh's store_group_max: 16-byte
 //     stores); documents past N (the last tile, N a multiple of 64) read
 //     as zero through the TMA and their groups are never stored.
-//   * f32 (tests and small indexes): plain FMA on CUDA cores (no TF32),
-//     64 x 64 tiles, each thread owning one group of 8 documents for 2
-//     queries.
+//   * f32 (`FlatIndex` with f32 embeddings): on the tensor cores in
+//     3xTF32 (hopper.cuh: the accuracy argument, the orientation and the
+//     epilogue).  Documents on M: the consumers read the TMA-loaded,
+//     swizzled embedding slice (A) into registers and split it there; the
+//     queries are B, split by the wrapper and stacked (2 Qp, D), by TMA.
+//     A tile is 256 documents x 128 queries, 3 stages of 64 KB, query
+//     tiles of one document tile neighbours.  The epilogue keeps the
+//     __fmul_rn / __fadd_rn order above.  Bounds at three TF32 products:
+//     0.208 ms at the bench shape (Q = 256, N = 262,144, D = 256; bytes
+//     0.091 ms) and 2.50 ms at the dense pass (Q = 2000, D = 384; bytes
+//     0.204 ms).  L2 -> SM traffic: each query tile reads the embeddings
+//     and each tile its queries' split slab, 0.54 + 0.54 GB at the bench
+//     shape and 6.6 + 6.6 GB at the dense pass (16 query tiles; 393 KB of
+//     split queries per tile).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.629 ms
 // at the dense pass (66% of its bound), 0.066 ms bf16 and 0.054 ms int8
 // at the bench shape (76% and 57%).  What is left is mostly the epilogue
@@ -209,60 +220,89 @@ __global__ void __launch_bounds__(hopper::kThreads, 1) fused_flat_wgmma_kernel(
   }
 }
 
-constexpr int FQ = 64;    // queries per block (f32 path)
-constexpr int FN = 64;    // documents per block
-constexpr int FK = 16;    // depth of one shared-memory slice
+// ---- f32 embeddings: 3xTF32 on the tensor cores (hopper.cuh) --------------
+// The A slice is 256 documents x 128 bytes by TMA under the 128-byte
+// swizzle: element (d, k) sits in 16-byte chunk (k / 4) ^ (d % 8) of row
+// d.  A fragment load's 8 quads read 8 documents with d % 8 = 0..7 at one
+// k / 4, so the chunks differ and the 32 words hit 32 banks.
+constexpr int kF32ABytes = hopper::kF32Docs * hopper::kSliceBytes;   // 32 KB
+constexpr int kF32Smem = hopper::f32_smem_bytes(kF32ABytes);
 
-__global__ void __launch_bounds__(256) fused_flat_f32_kernel(
-    const float* __restrict__ Q, const float* __restrict__ E,
-    const float* __restrict__ bias, float* __restrict__ out, int D, int N,
-    float alpha) {
-  __shared__ float Qs[FK][FQ];
-  __shared__ float Es[FK][FN];
-  const int tid = threadIdx.x;
-  const int tg = tid & 7;     // group of 8 documents within the tile
-  const int tq = tid >> 3;    // pair of queries within the tile
-  const int q0 = blockIdx.x * FQ;
-  const int n0 = blockIdx.y * FN;
-  const int ng = N / 8;
+__global__ void __launch_bounds__(hopper::kThreads, 1) fused_flat_f32_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap emap, const float* __restrict__ bias,
+    float* __restrict__ out, int n_qt, int Qp, int kt, int N, float alpha) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const F32Ring ring = carve_f32_ring(smem_raw, kF32ABytes);
+  const int tiles = n_qt * ((N + kF32Docs - 1) / kF32Docs);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float acc[2][8];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc[r][u] = 0.0f;
-
-  const int lr = tid >> 2, kc = (tid & 3) * 4;   // loader: row, 4 of depth
-  for (int k0 = 0; k0 < D; k0 += FK) {
-    const float4 qv = *reinterpret_cast<const float4*>(
-        Q + (size_t)(q0 + lr) * D + k0 + kc);
-    const float4 ev = *reinterpret_cast<const float4*>(
-        E + (size_t)(n0 + lr) * D + k0 + kc);
-    Qs[kc][lr] = qv.x; Qs[kc + 1][lr] = qv.y;
-    Qs[kc + 2][lr] = qv.z; Qs[kc + 3][lr] = qv.w;
-    Es[kc][lr] = ev.x; Es[kc + 1][lr] = ev.y;
-    Es[kc + 2][lr] = ev.z; Es[kc + 3][lr] = ev.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      const float w0 = Qs[kk][tq * 2], w1 = Qs[kk][tq * 2 + 1];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float e = Es[kk][tg * 8 + u];
-        acc[0][u] = fmaf(w0, e, acc[0][u]);
-        acc[1][u] = fmaf(w1, e, acc[1][u]);
+  if (wg == 0) {
+    // ---- producer: one thread, split queries and embeddings by TMA --------
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int qt = t % n_qt, dt = t / n_qt;
+        for (int k = 0; k < kt; ++k) {
+          mbar_wait(&ring.empty[s], ph ^ 1);
+          uint8_t* st = ring.stage + s * ring.stage_bytes;
+          mbar_arrive_expect_tx(&ring.full[s], 2 * kF32BBytes + kF32ABytes);
+          tma_load_2d(st, &qmap, k * kF32Depth, qt * kF32Queries,
+                      &ring.full[s]);
+          tma_load_2d(st + kF32BBytes, &qmap, k * kF32Depth,
+                      Qp + qt * kF32Queries, &ring.full[s]);
+          tma_load_2d(st + 2 * kF32BBytes, &emap, k * kF32Depth,
+                      dt * kF32Docs, &ring.full[s]);
+          if (++s == kF32Stages) { s = 0; ph ^= 1; }
+        }
       }
     }
-    __syncthreads();
-  }
+  } else {
+    // ---- consumers: 128 documents x 128 queries each ----------------------
+    setmaxnreg_inc<232>();
+    const int w = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int ng = N / 8;
+    const int row = 128 * w + 16 * warp + (lane >> 2);   // + 64m + 8h
+    int s = 0;
+    uint32_t ph = 0;
+    float sum[2][64];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int qt = t % n_qt, n0 = (t / n_qt) * kF32Docs;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int nb = n0 + tg * 8;
-    float m = __fadd_rn(__fmul_rn(alpha, acc[r][0]), bias[nb]);
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int u = 1; u < 8; ++u)
-      m = fmaxf(m, __fadd_rn(__fmul_rn(alpha, acc[r][u]), bias[nb + u]));
-    out[(size_t)(q0 + tq * 2 + r) * ng + n0 / 8 + tg] = m;
+        for (int i = 0; i < 64; ++i) sum[m][i] = 0.0f;
+      // A(d, k): row d of the swizzled slice (d % 8 = row % 8)
+      f32_products(sum, ring, [&](const uint8_t* sa, int m, int k, int h) {
+        return *reinterpret_cast<const float*>(
+            sa + (row + 64 * m + 8 * h) * kSliceBytes
+            + ((((k >> 2) ^ (row & 7))) << 4) + (k & 3) * 4);
+      }, kt, s, ph);
+      float b[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = n0 + row + 64 * m + 8 * h;
+          b[m][h] = d < N ? bias[d] : 0.0f;
+        }
+      f32_epilogue([&](int m, int k, int h) {
+        return __fadd_rn(__fmul_rn(alpha, sum[m][k]), b[m][h]);
+      }, ring.staged, out, ng, qt * kF32Queries, n0 / 8, w);
+    }
   }
 }
 
@@ -328,11 +368,27 @@ extern "C" int tdr_fused_flat_int8(const void* Q, const void* E,
                            stream);
 }
 
-extern "C" int tdr_fused_flat_f32(const float* Q, const float* E,
+// Qs: (2 Qp, D) f32, tf32_split(Q) stacked, big rows first.
+extern "C" int tdr_fused_flat_f32(const float* Qs, const float* E,
                                   const float* bias, float* out, int Qp,
                                   int D, int N, float alpha, void* stream) {
-  dim3 grid(Qp / FQ, N / FN);
-  fused_flat_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      Q, E, bias, out, D, N, alpha);
+  using namespace hopper;
+  CUtensorMap qmap, emap;
+  if (!encode_2d(&qmap, Qs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2 * Qp, D,
+                 kF32Queries) ||
+      !encode_2d(&emap, E, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, D,
+                 kF32Docs))
+    return (int)cudaErrorInvalidValue;
+  static int sm_cache[kMaxDevices] = {};
+  int sms = 0;
+  const cudaError_t e = prepare((const void*)fused_flat_f32_kernel, sm_cache,
+                                &sms, kF32Smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = Qp / kF32Queries;
+  const int tiles = n_qt * ((N + kF32Docs - 1) / kF32Docs);
+  const int grid = tiles < sms ? tiles : sms;
+  const int kt = (D + kF32Depth - 1) / kF32Depth;
+  fused_flat_f32_kernel<<<grid, kThreads, kF32Smem, (cudaStream_t)stream>>>(
+      qmap, emap, bias, out, n_qt, Qp, kt, N, alpha);
   return (int)cudaGetLastError();
 }

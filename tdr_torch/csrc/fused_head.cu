@@ -51,9 +51,22 @@
 //     cluster multicast of the shared operand would halve it.
 //   * epilogue: the bias, then the group-of-8 max over the wgmma
 //     accumulator (hopper.cuh's store_group_max: 16-byte stores).
-//   * f32 (tests and small indexes): plain FMA on CUDA cores, 64 x 64 tiles,
-//     each thread owning one group of 8 documents for 2 queries, over the
-//     whole head (the wrapper scatters Wc back to head-slot columns).
+//   * f32 heads (`--head-dtype float32`): the same active rows, on the
+//     tensor cores in 3xTF32 (hopper.cuh: the accuracy argument, the
+//     orientation and the epilogue).  tf32 wgmma reads shared memory only
+//     K-major and the head is documents-contiguous, so documents go on M:
+//     the consumers read A (head rows x 256 documents, gathered by
+//     cp.async as above into depth rows padded to 1056 bytes, which keeps
+//     the 32-bit fragment loads free of bank conflicts) into registers and
+//     split it there; Wc is B, split by the wrapper and stacked (2 Qp, D),
+//     by TMA.  A tile is 256 documents x 128 queries, 3 stages of 65 KB.
+//     At the en shape (Q = 256, 1,025 active rows) the work is 3 x 137.6
+//     GFLOP of TF32, 0.834 ms at 495 TFLOP/s, against 0.331 ms of bytes.
+//     L2 -> SM traffic: each of the 2 query tiles reads the head rows
+//     (1.07 GB, the second read from L2, its tile a neighbour), and each of
+//     the 2,048 tiles re-reads its 128 queries' split Wc (128 x 1,056 x 8
+//     B = 1.08 MB): 2.2 GB of each, 4.4 GB in all.  A cluster multicast of
+//     the split Wc to two document tiles would halve the second term.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 0.317 ms
 // at the en shape with 1,025 active rows (54% of their 0.171 ms bound),
 // 1.19 ms with all 4,096 rows active (55% of the whole-head bound).  Both consumer
@@ -179,63 +192,111 @@ __global__ void __launch_bounds__(hopper::kThreads, 1) fused_head_wgmma_kernel(
   }
 }
 
-constexpr int FQ = 64;    // queries per block (f32 path)
-constexpr int FN = 64;    // documents per block
-constexpr int FK = 16;    // depth of one shared-memory slice
+// ---- f32 heads: 3xTF32 on the tensor cores (hopper.cuh) -------------------
+// A depth row of the stage holds 256 documents, padded from 1024 to 1056
+// bytes (264 words, 8 mod 32): a fragment load's quad reads 4 depths of
+// one document and its 8 quads 8 documents, so word 8k + d covers 32
+// banks.
+constexpr int kF32ARow = hopper::kF32Docs * 4 + 32;
+constexpr int kF32ABytes = hopper::kF32Depth * kF32ARow;          // 33 KB
+constexpr int kF32Smem = hopper::f32_smem_bytes(kF32ABytes);
 
-__global__ void __launch_bounds__(256) fused_head_f32_kernel(
-    const float* __restrict__ W, const float* __restrict__ H,
-    const float* __restrict__ bias, float* __restrict__ out, int D, int N) {
-  __shared__ float Ws[FK][FQ];
-  __shared__ float Hs[FK][FN];
-  const int tid = threadIdx.x;
-  const int tg = tid & 7;     // group of 8 documents within the tile
-  const int tq = tid >> 3;    // pair of queries within the tile
-  const int q0 = blockIdx.x * FQ;
-  const int n0 = blockIdx.y * FN;
-  const int ng = N / 8;
-
-  float acc[2][8];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc[r][u] = 0.0f;
-
-  for (int k0 = 0; k0 < D; k0 += FK) {
-    {
-      const int q = tid >> 2, kc = (tid & 3) * 4;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + kc + u;
-        Ws[kc + u][q] = k < D ? W[(size_t)(q0 + q) * D + k] : 0.0f;
-      }
+__global__ void __launch_bounds__(hopper::kThreads, 1) fused_head_f32_kernel(
+    const __grid_constant__ CUtensorMap wmap, const float* __restrict__ H,
+    const int* __restrict__ rows, const int* __restrict__ n_active_p,
+    const float* __restrict__ bias, float* __restrict__ out, int n_qt,
+    int Qp, int N) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const F32Ring ring = carve_f32_ring(smem_raw, kF32ABytes);
+  const int n_active = *n_active_p;
+  const int kt = (n_active + kF32Depth - 1) / kF32Depth;
+  const int tiles = n_qt * ((N + kF32Docs - 1) / kF32Docs);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kF32Stages; ++s) {
+      mbar_init(&ring.full[s], 128 + 1);      // 128 cp.async + 1 TMA arrival
+      mbar_init(&ring.empty[s], kConsumerWarps);
     }
-    {
-      const int kr = tid >> 4, nc = (tid & 15) * 4;
-      const int k = k0 + kr;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        Hs[kr][nc + u] = k < D ? H[(size_t)k * N + n0 + nc + u] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      const float w0 = Ws[kk][tq * 2], w1 = Ws[kk][tq * 2 + 1];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float h = Hs[kk][tg * 8 + u];
-        acc[0][u] = fmaf(w0, h, acc[0][u]);
-        acc[1][u] = fmaf(w1, h, acc[1][u]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: split Wc by TMA, the gathered head rows by cp.async ----
+    setmaxnreg_dec<40>();
+    // warp wp fills depth rows wp, wp + 4, ...: two 512-byte segments a
+    // row (the tile's 256 documents), lane = 16-byte chunk
+    const int wp = tid >> 5, lane = tid & 31;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int qt = t % n_qt, n0 = (t / n_qt) * kF32Docs;
+      for (int k = 0; k < kt; ++k) {
+        // lane i < 8 looks up the head row of depth row wp + 4i
+        const int dl = k * kF32Depth + wp + 4 * (lane & 7);
+        const int rl = dl < n_active ? rows[dl] : -1;
+        mbar_wait(&ring.empty[s], ph ^ 1);
+        uint8_t* st = ring.stage + s * ring.stage_bytes;
+        if (tid == 0) {
+          mbar_arrive_expect_tx(&ring.full[s], 2 * kF32BBytes);
+          tma_load_2d(st, &wmap, k * kF32Depth, qt * kF32Queries,
+                      &ring.full[s]);
+          tma_load_2d(st + kF32BBytes, &wmap, k * kF32Depth,
+                      Qp + qt * kF32Queries, &ring.full[s]);
+        }
+        uint8_t* ast = st + 2 * kF32BBytes;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float m = acc[r][0] + bias[n0 + tg * 8];
+        for (int i = 0; i < 8; ++i) {
+          const int j = wp + 4 * i;
+          const int r = __shfl_sync(0xffffffffu, rl, i);
 #pragma unroll
-    for (int u = 1; u < 8; ++u) m = fmaxf(m, acc[r][u] + bias[n0 + tg * 8 + u]);
-    out[(size_t)(q0 + tq * 2 + r) * ng + n0 / 8 + tg] = m;
+          for (int half = 0; half < 2; ++half) {
+            const int doc = (lane + 32 * half) * 4;
+            const bool ok = r >= 0 && n0 + doc < N;
+            cp_async16(smem_u32(ast + j * kF32ARow + doc * 4),
+                       ok ? (const void*)(H + (size_t)r * N + n0 + doc)
+                          : (const void*)H,
+                       ok ? 16 : 0);
+          }
+        }
+        cp_async_arrive_noinc(&ring.full[s]);
+        if (++s == kF32Stages) { s = 0; ph ^= 1; }
+      }
+    }
+  } else {
+    // ---- consumers: 128 documents x 128 queries each ----------------------
+    setmaxnreg_inc<232>();
+    const int w = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int ng = N / 8;
+    const int row = 128 * w + 16 * warp + (lane >> 2);   // + 64m + 8h
+    int s = 0;
+    uint32_t ph = 0;
+    float sum[2][64];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int qt = t % n_qt, n0 = (t / n_qt) * kF32Docs;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[m][i] = 0.0f;
+      // A(d, k) = head row k of the slice at document d: depth-major
+      f32_products(sum, ring, [&](const uint8_t* sa, int m, int k, int h) {
+        return *reinterpret_cast<const float*>(
+            sa + k * kF32ARow + (row + 64 * m + 8 * h) * 4);
+      }, kt, s, ph);
+      float b[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = n0 + row + 64 * m + 8 * h;
+          b[m][h] = d < N ? bias[d] : 0.0f;
+        }
+      f32_epilogue([&](int m, int k, int h) { return sum[m][k] + b[m][h]; },
+                   ring.staged, out, ng, qt * kF32Queries, n0 / 8, w);
+    }
   }
 }
 
@@ -264,11 +325,25 @@ extern "C" int tdr_fused_head_bf16(const void* Wc, const void* H,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tdr_fused_head_f32(const float* W, const float* H,
-                                  const float* bias, float* out, int Qp, int D,
-                                  int N, void* stream) {
-  dim3 grid(Qp / FQ, N / FN);
-  fused_head_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(W, H, bias,
-                                                                 out, D, N);
+// Ws: (2 Qp, D) f32, tf32_split(Wc) stacked, big rows first.
+extern "C" int tdr_fused_head_f32(const float* Ws, const float* H,
+                                  const int* rows, const int* n_active,
+                                  const float* bias, float* out, int Qp,
+                                  int D, int N, void* stream) {
+  using namespace hopper;
+  CUtensorMap wmap;
+  if (!encode_2d(&wmap, Ws, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2 * Qp, D,
+                 kF32Queries))
+    return (int)cudaErrorInvalidValue;
+  static int sm_cache[kMaxDevices] = {};
+  int sms = 0;
+  const cudaError_t e = prepare((const void*)fused_head_f32_kernel, sm_cache,
+                                &sms, kF32Smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qt = Qp / kF32Queries;
+  const int tiles = n_qt * ((N + kF32Docs - 1) / kF32Docs);
+  const int grid = tiles < sms ? tiles : sms;
+  fused_head_f32_kernel<<<grid, kThreads, kF32Smem, (cudaStream_t)stream>>>(
+      wmap, H, rows, n_active, bias, out, n_qt, Qp, N);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,9 @@
 // whose CTA keeps one query tile may instead hold that tile's whole depth
 // of A resident (up to kResidentSlices slices, loaded once on the `qfull`
 // barrier) and ring B alone through the bytes left (resident_stages): the
-// same shared memory either way.
+// same shared memory either way.  The f32 bodies (3xTF32, documents on M)
+// have a ring and an epilogue of their own, in the section below
+// `f32 operands on the tensor cores`.
 
 #pragma once
 
@@ -225,6 +227,11 @@ __device__ __forceinline__ void fence_operands(int (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // Shared-memory matrix descriptor for the 128-byte swizzle (layout type 1):
 // start address, leading and stride byte offsets, each in 16-byte units.
 //  K-major (rows of 128 B of depth): LBO unused (1), SBO = 1024 B, the step
@@ -311,6 +318,34 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da,
       : "l"(da), "l"(db));
 }
 
+// D += A * B over 8 of tf32 depth: A 64 x 8 from registers (this thread's
+// four .b32 elements of the PTX ISA's m64nNk8 A fragment, low 13 bits
+// zero), B 8 x 128 from shared memory (K-major).  D is the warpgroup's
+// 64 x 128 f32 accumulator, 64 registers a thread; acc_d = 0 overwrites it
+// instead of adding.  tf32 has no transpose bit: both operands are
+// K-major.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db, int acc_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc_d));
+}
+
 // ---- the group-of-8 epilogue ------------------------------------------------
 
 // Stores the group-of-8 maxima of one warpgroup's m64n256 accumulator tile.
@@ -376,6 +411,216 @@ __device__ __forceinline__ void store_group_max(Score score, float* out, int ng,
   }
 }
 
+// ---- f32 operands on the tensor cores: 3xTF32 --------------------------------
+//
+// The f32 bodies of fused_head.cu and fused_flat.cu.  A tf32 operand keeps
+// 10 of f32's 23 mantissa bits, so one TF32 product is off by up to 2^-11
+// of |x y|.  Split each f32 operand x into big = tf32(x) and small =
+// tf32(x - big), both rounded to nearest (cvt.rna; x - big is exact in
+// f32), and sum big*big + big*small + small*big in f32: |x - big - small|
+// <= 2^-22 |x|, and the dropped small*small is below 2^-22 |x y|, so each
+// product is within about 2^-21 of |x y|.  BM25 head entries and query
+// weights are non-negative (K2's sums do not cancel: rtol about 1e-6);
+// K3's inner products of unit vectors err by about 1e-6 absolute.
+//
+// wgmma takes tf32 from shared memory only K-major (the transpose bit
+// exists for 16-bit types), and the head is documents-contiguous.  So
+// documents go on M, with A read from the landed stage into registers
+// (any layout will do) and split there (two cvt.rna and a subtraction, no
+// second tile), and queries on N, with B = the query operand by TMA,
+// split by the wrapper before the launch and stacked as (2 Qp, D) f32:
+// big rows, then small rows.  Both are K-major as stored.  The products
+// of each 32-deep slice are summed apart and added in with f32 adds that
+// round to nearest (f32_products says why).
+//
+// A tile is 256 documents x 128 queries: each consumer warpgroup owns 128
+// documents as two m64n128 sums (64 registers a thread each) and one
+// m64n128 partial accumulator, and each 32-deep slice issues 3 x 2 wgmma
+// m64n128k8 per 8 of depth.  A stage
+// holds B big (16 KB), B small (16 KB) and the A slice (a_bytes); three
+// stages.  The epilogue reduces a group of 8 documents (8 accumulator rows,
+// across lane bits 2-4) by shuffles, stages the (128 queries x 32 groups)
+// maxima in shared memory and stores them 16 bytes a thread.
+
+constexpr int kF32Docs = 256;               // documents per tile (M)
+constexpr int kF32Queries = 128;            // queries per tile (N)
+constexpr int kF32Depth = kSliceBytes / 4;  // f32 depth of one stage
+constexpr int kF32Stages = 3;
+constexpr int kF32BBytes = kF32Queries * kSliceBytes;     // big or small: 16 KB
+constexpr int kF32OutStride = kF32Docs / 8 + 1;           // floats a staged row
+constexpr int kF32OutBytes = kF32Queries * kF32OutStride * 4;
+__host__ __device__ constexpr int f32_stage_bytes(int a_bytes) {
+  return 2 * kF32BBytes + a_bytes;
+}
+__host__ __device__ constexpr int f32_smem_bytes(int a_bytes) {
+  return kF32Stages * f32_stage_bytes(a_bytes) + kF32OutBytes
+         + 2 * kF32Stages * 8 + 1024;       // + barriers, alignment
+}
+
+struct F32Ring {
+  uint8_t* stage;      // kF32Stages x stage_bytes, 1024-aligned: B big, B small, A
+  int stage_bytes;
+  float* staged;       // kF32Queries x kF32OutStride group maxima
+  uint64_t* full;      // kF32Stages
+  uint64_t* empty;     // kF32Stages
+};
+
+__device__ __forceinline__ F32Ring carve_f32_ring(uint8_t* raw, int a_bytes) {
+  F32Ring r;
+  r.stage = (uint8_t*)(((uintptr_t)raw + 1023) & ~(uintptr_t)1023);
+  r.stage_bytes = f32_stage_bytes(a_bytes);
+  r.staged = (float*)(r.stage + kF32Stages * r.stage_bytes);
+  r.full = (uint64_t*)((uint8_t*)r.staged + kF32OutBytes);
+  r.empty = r.full + kF32Stages;
+  return r;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// A consumer warpgroup's products of one tile over kt slices: sum[m] (its
+// documents 64m .. 64m + 63) += A · Bᵀ in 3xTF32.  a_at(sa, m, k, h) reads
+// the f32 A element of this thread's fragment row (PTX ISA, m64nNk8 tf32 A
+// fragment: row 16 * warp + lane / 4 + 8h of the m-tile, depth k of the
+// slice) from the stage's A slice sa.
+//   The tensor cores add each product into their f32 accumulator with
+// truncation, so a long sum drifts by up to an ulp of the running total per
+// step (3 D / 8 steps here): at the dense bench's shape that broke atol
+// 1e-5.  So each slice's 12 products per m-tile start a fresh partial sum
+// `part` (32 of depth, a small total), and the warpgroup adds it into `sum`
+// with round-to-nearest f32 adds once its products are done.  One commit
+// group per 8 of depth, waited one behind, keeps two fragments live; the
+// wait for a whole m-tile before its flush is covered by the other
+// warpgroup's products.  (s, ph) walk the ring across tiles.
+template <typename AAt>
+__device__ __forceinline__ void f32_products(float (&sum)[2][64],
+                                             const F32Ring& ring, AAt a_at,
+                                             int kt, int& s, uint32_t& ph) {
+  const int lane = threadIdx.x & 31;
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  for (int k = 0; k < kt; ++k) {
+    mbar_wait(&ring.full[s], ph);
+    const uint8_t* st = ring.stage + s * ring.stage_bytes;
+    const uint32_t bb = smem_u32(st), bs = bb + kF32BBytes;
+    const uint8_t* sa = st + 2 * kF32BBytes;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t big[4], small[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)   // a0..a3: (row, k), (row+8, k), (row, k+4), (row+8, k+4)
+          tf32_split(a_at(sa, m, 8 * kk + (lane & 3) + 4 * (r >> 1), r & 1),
+                     big[r], small[r]);
+        const uint64_t db = make_desc(bb + kk * 32, 16, 1024);
+        const uint64_t ds = make_desc(bs + kk * 32, 16, 1024);
+        wgmma_fence();
+        wgmma_m64n128k8_tf32(part, big, ds, kk > 0);
+        wgmma_m64n128k8_tf32(part, small, db, 1);
+        wgmma_m64n128k8_tf32(part, big, db, 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      wgmma_wait<0>();
+      fence_operands(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[m][i] = __fadd_rn(sum[m][i], part[i]);
+    }
+    if (lane == 0) mbar_arrive(&ring.empty[s]);
+    if (++s == kF32Stages) { s = 0; ph ^= 1; }
+  }
+}
+
+// One reduce-scatter round over lanes: of each pair (a[lo], a[hi]) whose
+// indices differ in bit P, this lane keeps the one `bit` picks and sends
+// the other to lane ^ X; b[k] is the max of the kept and the received.
+template <int P, int X, int N>
+__device__ __forceinline__ void max_scatter(const float (&a)[N],
+                                            float (&b)[N / 2], bool bit) {
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const int lo = ((k >> P) << (P + 1)) | (k & ((1 << P) - 1));
+    const int hi = lo | (1 << P);
+    const float keep = bit ? a[hi] : a[lo], send = bit ? a[lo] : a[hi];
+    b[k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, X));
+  }
+}
+
+// Stages the group-of-8 maxima of one warp's 16 document rows of an
+// m64n128 accumulator (documents on M).  score(k) is the f32 score of
+// element k = 4i + e, which is (PTX ISA, wgmma D fragment) document row
+// lane / 4 + 8 (e >> 1) of the warp's 16 and query 8i + 2 (lane % 4) +
+// (e & 1).  A group of 8 documents is one e >> 1 over the lanes lane / 4 =
+// 0..7: three reduce-scatter rounds (32 + 16 + 8 shuffles, not 3 x 64) keep
+// index bits e & 1, i & 1 and i & 2 by lane bits 2, 3 and 4 and leave each
+// lane 8 maxima: group g0 + (k & 1) of query 8i + 2 (lane % 4) + e0, with
+// e0 = lane bit 2 and i = lane bit 3 + 2 (lane bit 4) + 4 (k >> 1).  The
+// 32 lanes' queries differ mod 32, so with rows of kF32OutStride (33)
+// floats the stores hit 32 banks.
+template <typename Score>
+__device__ __forceinline__ void stage_group_max_docs(Score score,
+                                                     float* staged, int g0) {
+  const int lane = threadIdx.x & 31;
+  float v[64], r1[32], r2[16], r3[8];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) v[k] = score(k);
+  max_scatter<0, 4>(v, r1, (lane >> 2) & 1);
+  max_scatter<1, 8>(r1, r2, (lane >> 3) & 1);
+  max_scatter<1, 16>(r2, r3, (lane >> 4) & 1);
+  const int q0 = 8 * (((lane >> 3) & 1) + 2 * ((lane >> 4) & 1))
+                 + 2 * (lane & 3) + ((lane >> 2) & 1);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    staged[(q0 + 32 * (k >> 1)) * kF32OutStride + g0 + (k & 1)] = r3[k];
+}
+
+// The staged (kF32Queries x 32 groups) maxima to out (queries major, ng
+// groups a row), 16 bytes a thread, 8 threads a query row; thread t of
+// nthreads.  Groups at or past ng (a ragged last tile) are not stored; ng
+// is a multiple of 4.
+__device__ __forceinline__ void store_staged(const float* staged, float* out,
+                                             int ng, int q0, int g0, int t,
+                                             int nthreads) {
+  for (int c = t; c < kF32Queries * 8; c += nthreads) {
+    const int q = c >> 3, j = (c & 7) * 4;
+    if (g0 + j < ng) {
+      const float* sv = staged + q * kF32OutStride + j;
+      *reinterpret_cast<float4*>(out + (size_t)(q0 + q) * ng + g0 + j) =
+          make_float4(sv[0], sv[1], sv[2], sv[3]);
+    }
+  }
+}
+
+// A whole consumer tile's epilogue, both warpgroups (256 threads, named
+// barrier 1): stage each warp's maxima, then store the tile's rows.  The
+// first barrier keeps the previous tile's stores ahead of this tile's
+// staging.  score(m, k, h) is the score of element k of accumulator m for
+// the document row of half h.
+template <typename Score>
+__device__ __forceinline__ void f32_epilogue(Score score, float* staged,
+                                             float* out, int ng, int q0,
+                                             int g0, int w) {
+  const int warp = (threadIdx.x % 128) >> 5;
+  named_barrier(1, 256);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    stage_group_max_docs([&](int k) { return score(m, k, (k >> 1) & 1); },
+                         staged, 16 * w + 8 * m + 2 * warp);
+  named_barrier(1, 256);
+  store_staged(staged, out, ng, q0, g0, threadIdx.x - 128, 256);
+}
+
 // ---- host side --------------------------------------------------------------
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -425,13 +670,13 @@ static inline bool encode_2d(CUtensorMap* map, const void* base,
 }
 
 // Readies `kernel` for a launch on the current device: once per device,
-// allows it kSmemBytes of dynamic shared memory (above the 48 KB default)
+// allows it smem_bytes of dynamic shared memory (above the 48 KB default)
 // and reads the SM count into the caller's per-device cache.  *sms is the
 // grid's CTA limit (one persistent CTA per SM).
 constexpr int kMaxDevices = 64;
 
 static inline cudaError_t prepare(const void* kernel, int (&cache)[kMaxDevices],
-                                  int* sms) {
+                                  int* sms, int smem_bytes = kSmemBytes) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -439,7 +684,7 @@ static inline cudaError_t prepare(const void* kernel, int (&cache)[kMaxDevices],
   if (cache[dev] == 0) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             smem_bytes);
     if (e != cudaSuccess) return e;
     int n = 0;
     e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);

@@ -10,7 +10,9 @@ the link needs no ``-lcuda``.  Nothing here runs when the module is
 imported, so the CPU tests import every module without ``nvcc``.
 
 ``launches`` counts, per kernel, the launches the wrappers made; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  The f32 bodies of
+K2 and K3 count under their own names (``fused_head_f32``,
+``fused_flat_f32``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0,
-                            "fused_flat": 0, "head_scores": 0}
+                            "fused_head_f32": 0, "fused_flat": 0,
+                            "fused_flat_f32": 0, "head_scores": 0}
 build_log: str = ""
 build_seconds: Optional[float] = None
 
@@ -46,7 +49,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tdr_tail_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tdr_fused_head_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "tdr_fused_head_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "tdr_fused_head_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_flat_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "tdr_fused_flat_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "tdr_fused_flat_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],

@@ -1,8 +1,8 @@
 """Fused dense flat-search top-k: the port of ``fused_flat_topk`` in
 ``tdr/ops/pallas_flat.py``.
 
-Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_flat.cu`` (for bf16 and
-int8 a persistent, warp-specialised wgmma kernel fed by a TMA ring): the
+Phase 1 is the CUDA kernel ``tdr_torch/csrc/fused_flat.cu`` (a persistent,
+warp-specialised wgmma kernel fed by a TMA ring; f32 in 3xTF32): the
 product of the queries with the (N, D) embeddings (bf16 or f32 with f32
 accumulation, or int8 x int8 → int32 dequantized by the per-doc and
 per-query scales), times ``alpha``, plus a per-doc bias (the padding mask,
@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from tdr_torch.ops import cuda_build
+from tdr_torch.ops.tf32 import tf32_split
 from tdr_torch.ops.topk import fast_topk, sort_desc_by_value_then_index
 
 NEG = -1e30          # finite -inf stand-in: survives 0*x math
@@ -133,17 +134,24 @@ def fused_flat_blockmax(q: torch.Tensor, emb: torch.Tensor,
     out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=emb.device)
     lib = cuda_build.lib()
     stream = cuda_build.current_stream(emb.device)
+    name = "fused_flat"
     if is_int8:
         err = lib.tdr_fused_flat_int8(
             q.data_ptr(), emb.data_ptr(), bias.data_ptr(), dscale.data_ptr(),
             qscale.data_ptr(), out.data_ptr(), Qp, D, N, alpha, stream)
+    elif emb.dtype == torch.bfloat16:
+        err = lib.tdr_fused_flat_bf16(q.data_ptr(), emb.data_ptr(),
+                                      bias.data_ptr(), out.data_ptr(), Qp, D,
+                                      N, alpha, stream)
     else:
-        fn = (lib.tdr_fused_flat_bf16 if emb.dtype == torch.bfloat16
-              else lib.tdr_fused_flat_f32)
-        err = fn(q.data_ptr(), emb.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 Qp, D, N, alpha, stream)
-    cuda_build.check(err, "fused_flat")
-    cuda_build.launches["fused_flat"] += 1
+        # the B operand of the 3xTF32 products: big rows, then small rows
+        qs = torch.cat(tf32_split(q))
+        err = lib.tdr_fused_flat_f32(qs.data_ptr(), emb.data_ptr(),
+                                     bias.data_ptr(), out.data_ptr(), Qp, D,
+                                     N, alpha, stream)
+        name = "fused_flat_f32"
+    cuda_build.check(err, name)
+    cuda_build.launches[name] += 1
     return out
 
 

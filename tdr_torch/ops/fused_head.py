@@ -6,8 +6,9 @@ product with f32 accumulation plus a -1e30 pad bias, reduced to the maximum
 of each group of 8 documents, so the (Q, N) score matrix never reaches
 memory.  Before it, ``compact_active_rows`` lists on the device the head
 slots some query of the batch uses (``rows``, ``n_active``) and gathers
-their weight columns into ``Wc``, so the bf16 kernel streams only those
-rows of the head.  Phase 2 is torch code, as the JAX code does it in XLA:
+their weight columns into ``Wc``, so the kernel streams only those rows
+of the head (bf16 heads through ``wgmma`` in bf16, f32 heads in 3xTF32 on
+the tensor cores).  Phase 2 is torch code, as the JAX code does it in XLA:
 top-k over the group maxima, an exact rescore of the k·8 candidate
 documents from the active terms (slot-summed, head-dtype-rounded weights
 with a first-occurrence guard for terms sharing a slot), and a 2-key sort
@@ -25,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tdr_torch.ops import cuda_build
+from tdr_torch.ops.tf32 import tf32_split
 from tdr_torch.ops.topk import fast_topk, sort_desc_by_value_then_index
 
 NEG = -1e30          # finite -inf stand-in: survives 0*x math
@@ -80,9 +82,9 @@ def fused_head_blockmax(Wc: torch.Tensor, head: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """Group-of-8 maxima of ``Wc[:, :n_active] · head[rows[:n_active]] +
     bias``, (Qp, N/8) f32: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  The bf16 kernel streams only the ``n_active``
-    listed rows and reads ``n_active`` on the device; the f32 kernel runs
-    over the whole head, with ``Wc`` scattered back to slot columns."""
+    version on a CPU tensor.  Both kernels stream only the ``n_active``
+    listed rows and read ``n_active`` on the device; an f32 head runs the
+    3xTF32 body, which takes ``Wc`` split by ``tf32_split``."""
     if not head.is_cuda:
         return fused_head_blockmax_plain(Wc, head, rows, n_active, bias)
     Qp, D = Wc.shape
@@ -112,20 +114,22 @@ def fused_head_blockmax(Wc: torch.Tensor, head: torch.Tensor,
     out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=head.device)
     lib = cuda_build.lib()
     stream = cuda_build.current_stream(head.device)
+    name = "fused_head"
     if head.dtype == torch.bfloat16:
         err = lib.tdr_fused_head_bf16(
             Wc.data_ptr(), head.data_ptr(), rows.data_ptr(),
             n_active.data_ptr(), bias.data_ptr(), out.data_ptr(), Qp, D, N,
             stream)
     else:
-        # rows is a permutation of the slots: this puts every column back
-        W = torch.empty_like(Wc)
-        W[:, rows.long()] = Wc
-        err = lib.tdr_fused_head_f32(W.data_ptr(), head.data_ptr(),
-                                     bias.data_ptr(), out.data_ptr(), Qp, D,
-                                     N, stream)
-    cuda_build.check(err, "fused_head")
-    cuda_build.launches["fused_head"] += 1
+        # the B operand of the 3xTF32 products: big rows, then small rows
+        Ws = torch.cat(tf32_split(Wc))
+        err = lib.tdr_fused_head_f32(
+            Ws.data_ptr(), head.data_ptr(), rows.data_ptr(),
+            n_active.data_ptr(), bias.data_ptr(), out.data_ptr(), Qp, D, N,
+            stream)
+        name = "fused_head_f32"
+    cuda_build.check(err, name)
+    cuda_build.launches[name] += 1
     return out
 
 

@@ -112,7 +112,8 @@ def test_slice_counts_no_launch_on_cpu():
     trouter.LanguageRouter(s["tm"], query_batch=32).retrieve(
         s["queries"].queries[:40], s["queries"].langs[:40])
     assert cuda_build.launches == {"tail_compact": 0, "fused_head": 0,
-                                   "fused_flat": 0, "head_scores": 0}
+                                   "fused_head_f32": 0, "fused_flat": 0,
+                                   "fused_flat_f32": 0, "head_scores": 0}
 
 
 def test_engine_choice_follows_jax_rules():
