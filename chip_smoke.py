@@ -18,7 +18,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
    and a head slice of 131,200 documents (the last tile half empty); the
    same on an f32 copy of the en head through K2's f32 body (3xTF32 on the
    tensor cores: bound at three TF32 products, and at the f32 peak);
-   tail_compact on es at Q=256 and Q=1;
+   tail_compact (one launch from query terms to compacted rows) bit for
+   bit against its plain version on es at Q=256 and Q=1, on every K1 call
+   of one sparse pass as the router makes it (Q and the queries with a
+   tail term printed), on a batch with an overflowed query of each kind
+   and on one with no tail term; its device time (torch.profiler,
+   ``kernel_ms``), call time (CUDA events over 50 calls, ``ms`` and
+   ``call_ms``) and device kernels per call (exactly 1);
 3b. K3 (fused_flat) against its plain version at the dense bench's shape
    (262,144 random unit embeddings, D=256, Q=256): {bf16, int8, f32} x
    {ip, l2} and one n_valid < N case; then 64 more rows (the last
@@ -30,7 +36,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
 4. the sparse main path: ``LanguageRouter.retrieve`` over all queries,
    launch counts set to 0 just before one pass and read just after, then
    timed passes; queries/s and hard recall@10;
-5. single queries and a query of 8 (the small-batch buckets);
+5. single queries and a query of 8 (the small-batch buckets); 64 single
+   es queries one at a time (median ms a query);
 6. a reference check: each language's first batch through the fused path
    against the plain scatter path (full score matrix + stable top-k);
 7. the dense path: ``DenseModel.build`` over the same corpus with the
@@ -45,7 +52,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
    router (F=3, E=5) with and without spell repair — one-time doc-major
    build, K1/K2 launches of one pass, the second pass's overflowed share,
    timed passes, recall@10 held to the JAX recalls 0.769 and 0.7975
-   (+-0.003), and the pass against the scatter path; (b) the exact_compact
+   (+-0.003), K1 on es's first PRF-expanded batch (T = 69) against its
+   plain version, and the pass against the scatter path; (b) the exact_compact
    and approx modes against exact, with tier-2 trips; (c) the en model in
    a ``SegmentedBM25`` store: 100 added docs retrievable, a 768-query pass
    against the main model alone, 48 / 192 / 250 deleted top hits (K2 at
@@ -63,7 +71,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
    hold it to) and its lists against the scatter path; (b) inside phase 7,
    an f32 copy of the dense index through K3's f32 body at the pass's
    shape (``check_fused_flat``, one ``flat_search`` pass, lists against
-   the plain engine).
+   the plain engine); (c) after (a), with TF32 turned on as a user would
+   (``torch.set_float32_matmul_precision("high")``): K2 f32 at en Q=256,
+   K3 f32 at the bench shape (ip, l2), the f32-head pass against (a)'s
+   scatter lists and the f32 dense copy against the plain engine, at
+   unchanged tolerances, the flag read back after each, a verdict for
+   each check and one failure at the end, then restored.  The script sets
+   no precision flag of its own.
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
@@ -129,39 +143,172 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_tail_compact(index, qids, qw, label):
-    """K1 against its plain version at one batch; returns its record."""
+def k1_budget(index, tail_budget=2048):
+    """The budget the sparse path gives K1 (``score._fused_topk_core``)."""
+    return min(max(tail_budget, 4 * index.tail_pmax), 16 * index.tail_pmax)
+
+
+def tail_queries(index, qids, qw):
+    """How many queries of a batch hold a tail term (slot < 0, weight > 0)."""
+    slot = index.head_slot[qids.clamp(0, index.vocab_size - 1).long()]
+    return int(((slot < 0) & (qw > 0)).any(dim=1).sum().item())
+
+
+def check_tail_compact(index, qids, qw, label, budget=None):
+    """K1 (one launch: term compaction, offset scan, segment copy, overflow)
+    against its plain version (``tail_segments`` + ``tail_compact_rows_plain``)
+    on the same batch: rows bit for bit and overflow equal.  Returns (Q,
+    queries with a tail term, overflowed queries)."""
     import torch
     from tdr_torch.ops import tail_compact as tc
 
-    budget = min(max(1024, 4 * index.tail_pmax), 16 * index.tail_pmax)
-    starts, lens, offs, qw_c, _ = tc.tail_segments(index, qids, qw, budget)
-    width = tc.row_width(budget, index.tail_pmax)
-    args = (index.postings_doc, index.postings_w, starts, lens, offs, qw_c,
-            width, index.n_docs_pad, index.tail_pmax)
-    kd, kv = tc.tail_compact_rows(*args)
-    pd, pv = tc.tail_compact_rows_plain(*args)
+    budget = k1_budget(index) if budget is None else budget
+    kd, kv, ko = tc.tail_compact(index, qids, qw, budget)
+    pd, pv, po = tc.tail_compact_plain(index, qids, qw, budget)
     torch.cuda.synchronize()
     if not (torch.equal(kd, pd) and torch.equal(kv.view(torch.int32),
                                                 pv.view(torch.int32))):
-        fail(f"tail_compact {label}: kernel differs from plain version")
-    Q = qids.shape[0]
-    reps = 50
-    ms = time_ms(lambda: tc.tail_compact_rows(*args), reps)
-    plain_ms = time_ms(lambda: tc.tail_compact_rows_plain(*args), reps)
+        fail(f"tail_compact {label}: kernel rows differ from the plain version")
+    if not torch.equal(ko, po):
+        fail(f"tail_compact {label}: overflow flags differ from the plain "
+             f"version")
+    Q, T = qids.shape
+    n_tail, n_over = tail_queries(index, qids, qw), int(ko.sum().item())
+    say(f"[k1 tail_compact {label}] Q={Q} T={T} budget={budget} "
+        f"W={kd.shape[1]}: {n_tail} queries with a tail term, {n_over} "
+        f"overflowed; rows bit-exact, overflow equal")
+    return Q, n_tail, n_over
+
+
+def k1_device_times(index, qids, qw, budget, reps=50, one_launch=True):
+    """One ``tail_compact`` call as the path makes it: its device kernels
+    per call and the mean device time of its ``tail_compact`` kernel
+    (torch.profiler over ``reps`` calls), and ``call_ms`` (CUDA events
+    around ``reps`` back-to-back calls: the call's rate, host included).
+    With ``one_launch``, fails unless the call is exactly one device
+    kernel.  Returns (kernel_ms, call_ms, device kernels per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tdr_torch.ops import tail_compact as tc
+
+    call = lambda: tc.tail_compact(index, qids, qw, budget)  # noqa: E731
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    mine = [e.time_range.end - e.time_range.start for e in dev
+            if "tail_compact" in e.name]
+    if not mine:
+        fail("tail_compact: the profiler saw no tail_compact kernel")
+    per_call = len(dev) / reps
+    if one_launch and per_call != 1:
+        names = sorted({e.name[:60] for e in dev})
+        fail(f"tail_compact: one call ran {per_call} device kernels, not 1: "
+             f"{names}")
+    kernel_ms = sum(mine) / len(mine) / 1e3
+    call_ms = time_ms(call, reps)
+    return kernel_ms, call_ms, per_call
+
+
+def k1_record(index, qids, qw, label, reps=50):
+    """K1's record at one batch: kernel and call times, plain time, bound."""
+    import torch
+    from tdr_torch.ops import tail_compact as tc
+
+    budget = k1_budget(index)
+    kernel_ms, call_ms, per_call = k1_device_times(index, qids, qw, budget,
+                                                   reps)
+    plain_ms = time_ms(lambda: tc.tail_compact_plain(index, qids, qw, budget),
+                       reps)
+    Q, T = qids.shape
+    starts, lens, _, _, _ = tc.tail_segments(index, qids, qw, budget)
+    width = tc.row_width(budget, index.tail_pmax)
     seg = int(lens.sum().item())
-    n_bytes = (Q * width * 8 + seg * 8
-               + 4 * 4 * starts.numel())   # outputs + segments + 4 tables
+    # outputs, segment entries, the four (Q, MT) term tables, qids and qw
+    n_bytes = (Q * width * 8 + Q + seg * 8 + 4 * 4 * starts.numel()
+               + Q * T * 8)
     bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    say(f"[k1 tail_compact {label}] Q={Q} W={width} MT={starts.shape[1]} "
-        f"segment entries={seg}: bit-exact; kernel_ms={ms:.5f} "
-        f"plain_ms={plain_ms:.5f} library_ms=null bound_ms={bound_ms:.6f} "
-        f"(bytes)")
+    say(f"[k1 tail_compact {label}] Q={Q} T={T} W={width} segment "
+        f"entries={seg}: {per_call:.0f} device kernel a call; "
+        f"kernel_ms={kernel_ms:.5f} (device, torch.profiler) call_ms="
+        f"{call_ms:.5f} plain_ms={plain_ms:.5f} library_ms=null "
+        f"bound_ms={bound_ms:.6f} (bytes; {100 * bound_ms / kernel_ms:.1f}% "
+        f"of it in the kernel)")
+    torch.cuda.synchronize()
     return dict(name="tail_compact", route="cuda",
                 source="tdr_torch/csrc/tail_compact.cu",
                 replaces="tdr/ops/pallas_tail.py:152", launches=0,
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=0.0, ms=call_ms, kernel_ms=kernel_ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None)
+
+
+def k1_cases(models, router, queries, k1_lang, batch):
+    """Phase 3's K1 cases: es at Q = 256 and Q = 1; every K1 call of one
+    sparse pass as the router makes it (printed: Q and the queries with a
+    tail term); a batch with an overflowed query of each kind; a batch with
+    no tail term.  Each against the plain version, bit for bit.  Returns
+    the record (es Q = 256)."""
+    import torch
+    from tdr_torch.ops import score
+
+    index = models[k1_lang].index
+    qids, qw = batch(k1_lang, 256)
+    check_tail_compact(index, qids, qw, f"{k1_lang} Q=256")
+    rec = k1_record(index, qids, qw, f"{k1_lang} Q=256")
+    q1 = batch(k1_lang, 1)
+    check_tail_compact(index, *q1, f"{k1_lang} Q=1")
+    k1_record(index, *q1, f"{k1_lang} Q=1")
+
+    # the pass's own K1 calls, recorded as the router makes them
+    calls, real = [], score.tail_compact
+
+    def record(ix, qids, qw, budget, *a):
+        calls.append((ix, qids, qw, budget))
+        return real(ix, qids, qw, budget, *a)
+
+    score.tail_compact = record
+    try:
+        router.retrieve(queries.queries, queries.langs, k=10)
+    finally:
+        score.tail_compact = real
+    langs = {id(m.index): l for l, m in models.items()}
+    for i, (ix, qids, qw, budget) in enumerate(calls):
+        check_tail_compact(ix, qids, qw, f"pass call {i} "
+                           f"({langs.get(id(ix), '?')})", budget)
+
+    # overflow of each kind, at the path's smallest budget (4 tail_pmax):
+    # row 0 has 20 tail terms, row 1 the 16 longest (clamped offsets overlap)
+    P = index.tail_pmax
+    df = index.stats.df
+    tail = torch.nonzero((index.head_slot < 0) & (df > 0))[:, 0]
+    longest = tail[torch.argsort(df[tail], descending=True, stable=True)]
+    qids, qw = (t.clone() for t in batch(k1_lang, 256))
+    if qids.shape[1] < 20:
+        pad = 20 - qids.shape[1]
+        qids = torch.nn.functional.pad(qids, (0, pad))
+        qw = torch.nn.functional.pad(qw, (0, pad))
+    qids[:2], qw[:2] = 0, 0.0
+    qids[0, :20] = tail[:20].to(qids.dtype)
+    qw[0, :20] = 1.0
+    qids[1, :16] = longest[:16].to(qids.dtype)
+    qw[1, :16] = 2.0
+    _, _, n_over = check_tail_compact(index, qids, qw, "overflow rows",
+                                      budget=4 * P)
+    if n_over < 2:
+        fail(f"tail_compact overflow rows: {n_over} overflowed, 2 expected")
+    qids, qw = batch(k1_lang, 256)
+    slot = index.head_slot[qids.clamp(0, index.vocab_size - 1).long()]
+    _, n_tail, _ = check_tail_compact(index, qids,
+                                      torch.where(slot < 0, 0.0, qw),
+                                      "no tail term")
+    if n_tail:
+        fail("tail_compact no-tail batch: a tail term is left")
+    return rec
 
 
 def k2_operands(index, qids, qw, Qp):
@@ -570,7 +717,8 @@ def check_head_scores(index, qids, qw, label, reps=10):
 
 def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
     """Phase 7: the dense path, and 9b: K3's f32 body at the pass's shape;
-    returns K3's records (bf16, f32) at the pass's shape."""
+    returns K3's records (bf16, f32) at the pass's shape, the flat index
+    and the encoded queries."""
     import numpy as np
     import torch
     from tdr_torch import native
@@ -671,7 +819,7 @@ def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
         f"queries -> {bq.shape[0] / ivf_ms * 1e3:.1f} queries/s, top-10 "
         f"overlap with exact "
         f"{overlap:.4f}")
-    return rec, rec_f32
+    return rec, rec_f32, dense.flat, q_enc
 
 
 def f32_flat_phase(flat, q_enc, reps):
@@ -713,7 +861,8 @@ def f32_heads_phase(corpus, queries, reps, bf16_med, profile=False):
     once per en batch), the median of ``reps`` passes after a warm one
     against the bf16 pass's ``bf16_med`` of this process, recall@10, and
     the lists against the same models on the scatter path
-    (``use_fused_topk=False``, no kernel).  Returns the pass's counts."""
+    (``use_fused_topk=False``, no kernel).  Returns the pass's counts, the
+    models, and the queries with the scatter path's lists."""
     import torch
     from tdr_torch.eval import recall_at_k
     from tdr_torch.ops.fused_head import fused_head_available
@@ -765,8 +914,9 @@ def f32_heads_phase(corpus, queries, reps, bf16_med, profile=False):
         f"({med / bf16_med:.2f}x the bf16 pass's {bf16_med:.4f} s in this "
         f"process); recall@10 {recall:.4f}; launches in one pass {counts}; "
         f"lists == the scatter path's")
-    del router, models, plain
-    return counts
+    del router, plain
+    return counts, models, dict(queries=qs, langs=langs,
+                                lists=(pdocs, pscores))
 
 
 def counted(run):
@@ -819,7 +969,8 @@ def lists_match(docs_a, scores_a, docs_b, scores_b, skip=(), rtol=1e-5,
 def prf_phase(models, queries, reps, profile=False):
     """8a: PRF through the router, with and without spell repair; the K1
     and K2 launches of one pass, the overflowed share of the second pass,
-    and the pass against the scatter path."""
+    K1 against its plain version on es's first expanded batch, and the
+    pass against the scatter path."""
     import torch
     from tdr_torch.eval import recall_at_k
     from tdr_torch.ops import tail_compact as tc
@@ -889,6 +1040,10 @@ def prf_phase(models, queries, reps, profile=False):
             if m.index.head_size < m.index.vocab_size:
                 over += int(tc.tail_segments(m.index, q2, w2, budget)[4].sum())
                 n_tail += len(idx)
+            if lang == "es" and s == 0:
+                # K1 on a PRF-expanded batch: T + E terms cross 32-term chunks
+                check_tail_compact(m.index, q2, w2,
+                                   f"es PRF-expanded T={q2.shape[1]}", budget)
     both = LanguageRouter({l: dataclasses.replace(m, prf=True,
                                                   spell_correct=True)
                            for l, m in models.items()}, query_batch=256)
@@ -1173,6 +1328,108 @@ def checkpoint_phase(models, queries):
         f"router's top-10 lists and scores equal the built one's")
 
 
+def single_query_latency(router, queries, lang, n=64):
+    """Phase 5: ``n`` single ``lang`` queries through the router, one at a
+    time (K1 on each: a tail language), host clock around each with a
+    synchronize; the median ms a query."""
+    import torch
+
+    qs = [q for q, l in zip(queries.queries, queries.langs) if l == lang][:n]
+    for q in qs[:4]:
+        router.retrieve([q], [lang], k=10)
+    times = []
+    for q in qs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.retrieve([q], [lang], k=10)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    say(f"[single {lang}] {len(qs)} queries one at a time: median "
+        f"{statistics.median(times):.3f} ms a query (min {min(times):.3f}, "
+        f"max {max(times):.3f})")
+    return statistics.median(times)
+
+
+def tf32_phase(f32_models, f32_ref, flat, q_enc, bench_emb, bench_q,
+               strict=True):
+    """9c: four f32 checks again, with TF32 turned on the way a user would
+    (``torch.set_float32_matmul_precision("high")``), at the tolerances they
+    use without it: K2 f32 at en Q = 256 (``check_fused_head_f32``); K3 f32
+    at the bench shape, ip and l2 (``check_fused_flat``); the f32-head pass
+    against 9a's scatter-path lists (taken with the flag off); the f32 dense
+    copy against ``flat_search(engine="plain")``.  After each port call the
+    flag must read back as the caller set it; at the end it is restored.
+    Each check gets its own verdict; with ``strict`` the phase fails at the
+    end if any check failed.  Returns the failed checks' labels."""
+    import numpy as np
+    import torch
+    from tdr_torch.models.dense import flat_search
+    from tdr_torch.rank import LanguageRouter
+    from tdr_torch.text.fast import fast_tokenize_texts
+
+    failed, n_checks = [], 0
+
+    def verdict(label, run):
+        nonlocal n_checks
+        n_checks += 1
+        try:
+            run()
+            need(torch.get_float32_matmul_precision() == "high"
+                 and torch.backends.cuda.matmul.allow_tf32,
+                 f"9c: the TF32 flag was not restored after {label}")
+            say(f"[9c TF32 on] {label}: held; the flag read back \"high\"")
+        except SystemExit:
+            failed.append(label)
+            say(f"[9c TF32 on] {label}: FAILED (the reason is on stderr)")
+
+    def heads_pass():
+        router = LanguageRouter(f32_models, query_batch=256)
+        docs, scores = router.retrieve_with_scores(f32_ref["queries"],
+                                                   f32_ref["langs"], k=10)
+        bad = lists_match(docs, scores, *f32_ref["lists"])
+        need(not bad, f"9c: with TF32 on, the f32-head pass differs from the "
+                      f"scatter path's lists (TF32 off) at {len(bad)} of "
+                      f"{len(docs)} queries, {bad[:10]}")
+
+    def dense_pass():
+        f32 = dataclasses.replace(flat, embeddings=flat.embeddings.float())
+        fv, fr = flat_search(f32, q_enc, 10)
+        pv, pr = flat_search(f32, q_enc, 10, engine="plain")
+        fv, fr, pv, pr = (t.cpu().numpy() for t in (fv, fr, pv, pr))
+        need(bool(np.isfinite(fv).all()), "9c: non-finite dense scores")
+        bad = lists_match(fr, fv, pr, pv, atol=1e-5)
+        need(not bad, f"9c: with TF32 on, the f32 dense search differs from "
+                      f"the plain engine at {len(bad)} of {fr.shape[0]} "
+                      f"queries (max |score difference| "
+                      f"{np.abs(fv - pv).max():.3e}), {bad[:10]}")
+
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        en = f32_models["en"]
+        qs = [q for q, l in zip(f32_ref["queries"], f32_ref["langs"])
+              if l == "en"][:256]
+        qids, qw = en.encode_query_tokens(fast_tokenize_texts(qs, "en"))
+        verdict("K2 f32 en Q=256", lambda: check_fused_head_f32(
+            en.index, [(qids, qw, "9c TF32 on, en Q=256", None)]))
+        bq = torch.as_tensor(bench_q, device=DEVICE)
+        for metric in ("ip", "l2"):
+            index = flat_index_on_card(bench_emb, metric, "float32")
+            verdict(f"K3 f32 {metric}", lambda: check_fused_flat(
+                index, bq, f"9c TF32 on, float32 {metric}"))
+            del index
+        verdict("the f32-head pass against the scatter lists", heads_pass)
+        verdict("the f32 dense search against the plain engine", dense_pass)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    say(f"[9c TF32 on] {n_checks - len(failed)} of {n_checks} checks held "
+        f"with set_float32_matmul_precision(\"high\"); restored to "
+        f"{before!r}")
+    if strict and failed:
+        fail(f"9c: with TF32 on, {failed} failed")
+    return failed
+
+
 def profile_pass(label, run, trace_out=None) -> None:
     """One pass (``run()``) under torch.profiler: device time by kernel
     name, and the share of the pass's wall time the device was busy (union
@@ -1252,8 +1509,6 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: the card, the kernels --------------------------------------
     card = card_line()
@@ -1329,10 +1584,7 @@ def main() -> None:
         (qids, qw, f"{k2_lang} Q=256", None),
         (qids, torch.zeros_like(qw), "no head term", 0),
         (*last_batch, f"{k2_lang} last batch Q={last}", None)])
-    qids, qw = batch(k1_lang, 256)
-    rec_k1 = check_tail_compact(models[k1_lang].index, qids, qw, "Q=256")
-    qids, qw = batch(k1_lang, 1)
-    check_tail_compact(models[k1_lang].index, qids, qw, "Q=1")
+    rec_k1 = k1_cases(models, router, queries, k1_lang, batch)
 
     # -- phase 3b: K3 at the dense bench's shape -----------------------------
     import numpy as np
@@ -1434,6 +1686,7 @@ def main() -> None:
                      f"the full batch")
     say(f"buckets: 3 single queries and a query of {len(sel) - 3} match the "
         f"full batches")
+    single_query_latency(router, queries, k1_lang)
 
     # -- phase 6: reference check --------------------------------------------
     reference_check(models, queries.queries, queries.langs)
@@ -1441,8 +1694,9 @@ def main() -> None:
     rec_k2["launches"] = counts["fused_head"]
 
     # -- phase 7: the dense path ---------------------------------------------
-    rec_k3, rec_k3f = dense_phase(corpus, queries, bench_emb, bench_q,
-                                  args.reps, args.profile)
+    rec_k3, rec_k3f, flat, q_enc = dense_phase(corpus, queries, bench_emb,
+                                               bench_q, args.reps,
+                                               args.profile)
 
     # -- phase 8: the rest of the sparse path --------------------------------
     t8 = time.perf_counter()
@@ -1464,13 +1718,19 @@ def main() -> None:
     del router, models, k2_ix, batch
     gc.collect()
     torch.cuda.empty_cache()
-    f32_counts = f32_heads_phase(corpus, queries, args.reps, med,
-                                 args.profile)
+    f32_counts, f32_models, f32_ref = f32_heads_phase(
+        corpus, queries, args.reps, med, args.profile)
     rec_k2f["launches"] = f32_counts["fused_head_f32"]
     rec_k2f["launches_by_path"] = {"sparse_f32_heads":
                                    f32_counts["fused_head_f32"]}
     rec_k3f["launches_by_path"] = {"dense_f32": rec_k3f["launches"]}
     say(f"phase 9a: {time.perf_counter() - t9:.1f} s")
+
+    # -- phase 9c: the f32 checks again with TF32 turned on -----------------
+    t9 = time.perf_counter()
+    tf32_phase(f32_models, f32_ref, flat, q_enc, bench_emb, bench_q)
+    del f32_models, flat
+    say(f"phase 9c: {time.perf_counter() - t9:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,

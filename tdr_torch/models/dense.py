@@ -29,6 +29,7 @@ from tdr_torch.index.build import _tensor_from_saved
 from tdr_torch.models.encoder import DualEncoder, encode
 from tdr_torch.ops.fused_flat import (fused_flat_available, fused_flat_topk,
                                       quantize_queries_int8)
+from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.ops.topk import fast_topk
 from tdr_torch.text.hash_tokenizer import encode_batch
 from tdr_torch.utils.config import DenseConfig
@@ -136,14 +137,16 @@ def _int8_dots(q8: torch.Tensor, emb8: torch.Tensor) -> torch.Tensor:
 
 def _plain_scores(index: FlatIndex, q: torch.Tensor) -> torch.Tensor:
     """(Q, N_pad) f32 scores through one product: int8×int8→int32 with the
-    scales on the output axes, or the storage dtype with f32 output."""
+    scales on the output axes, or the storage dtype with f32 output (f32
+    storage in full IEEE f32; bf16 values are exact in TF32 anyway)."""
     emb = index.embeddings
     if emb.dtype == torch.int8:
         q8, qs = quantize_queries_int8(q)
         return _int8_dots(q8, emb).float() * qs * index.doc_scale[None, :]
     qk = q.to(emb.dtype)
     if emb.dtype == torch.float32:
-        return qk @ emb.T
+        with ieee_f32():
+            return qk @ emb.T
     if emb.is_cuda:
         return torch.mm(qk, emb.T, out_dtype=torch.float32)
     return qk.float() @ emb.float().T        # exact products of bf16 values
@@ -294,6 +297,7 @@ def _choose_rows(n: int, k: int, seed: int) -> torch.Tensor:
     return torch.randperm(n, generator=gen)[:k]
 
 
+@ieee_f32()
 def _kmeans_step(emb: torch.Tensor, cent: torch.Tensor, nlist: int,
                  chunk: int) -> torch.Tensor:
     """One spherical k-means step: assign each row to its max-inner-product
@@ -309,6 +313,7 @@ def _kmeans_step(emb: torch.Tensor, cent: torch.Tensor, nlist: int,
     return torch.where(norms > 1e-6, sums / norms.clamp_min(1e-6), cent)
 
 
+@ieee_f32()
 def _assign_chunked(emb: torch.Tensor, cent: torch.Tensor,
                     chunk: int) -> torch.Tensor:
     """argmax_j emb@cent[j] in row chunks: the (N, nlist) similarity never
@@ -455,6 +460,7 @@ def ivf_search(index: IvfIndex, q: torch.Tensor, top_k: int = 10,
     return (torch.cat([v for v, _ in outs]), torch.cat([r for _, r in outs]))
 
 
+@ieee_f32()
 def _ivf_search_chunk(index: IvfIndex, q: torch.Tensor, top_k: int,
                       nprobe: int):
     Q = q.shape[0]

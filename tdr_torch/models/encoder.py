@@ -16,7 +16,9 @@ same rounding points:
   would survive the mean pooling), and takes the softmax in the compute
   dtype;
 * GELU is the tanh approximation (flax's ``nn.gelu`` default);
-* mean pooling and the L2 normalization run in f32.
+* mean pooling and the L2 normalization run in f32;
+* an f32 encoder (``cfg.dtype="float32"``) multiplies in full IEEE f32,
+  whatever the caller's TF32 setting (``ops.precision.ieee_f32``).
 
 The attention is plain torch code: the JAX package computes it in XLA, outside
 any Pallas kernel.  ``encoder_state_from_flax`` carries flax parameters
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.utils.config import DenseConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
 
@@ -136,6 +139,7 @@ class DualEncoder(nn.Module):
             for _ in range(cfg.depth))
         self.ln_out = LayerNorm(cfg.dim)
 
+    @ieee_f32()
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         L = ids.shape[1]
         x = (self.tok_embed(ids.long()).to(self.dtype)

@@ -47,7 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "tdr_tail_compact": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdr_tail_compact_fused": [_P] * 10 + [_I] * 9 + [_P],
     "tdr_fused_head_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_head_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_fused_flat_bf16": [_P, _P, _P, _P, _I, _I, _I, _F, _P],

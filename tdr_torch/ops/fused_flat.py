@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from tdr_torch.ops import cuda_build
+from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.ops.tf32 import tf32_split
 from tdr_torch.ops.topk import fast_topk, sort_desc_by_value_then_index
 
@@ -73,6 +74,7 @@ def quantize_queries_int8(q: torch.Tensor):
     return torch.round(qf / qs).to(torch.int8), qs
 
 
+@ieee_f32()
 def fused_flat_blockmax_plain(q: torch.Tensor, emb: torch.Tensor,
                               bias: torch.Tensor, alpha: float,
                               dscale: Optional[torch.Tensor] = None,
@@ -221,7 +223,11 @@ def fused_flat_topk(embeddings: torch.Tensor, q: torch.Tensor,
     cand = embeddings[cols].float()                          # (Q, C, D)
     if embeddings.dtype == torch.int8:
         cand = cand * doc_scale.float()[cols][..., None]
-    dots = torch.bmm(cand, q_eff[:, :, None])[..., 0]
+    # bmm in the pin, not K2's elementwise form: at the dense pass (C x D =
+    # 80 x 384 a query) the product and sum cost the device more than the
+    # pin costs the host
+    with ieee_f32():
+        dots = torch.bmm(cand, q_eff[:, :, None])[..., 0]
     scores = alpha * dots + bias[cols]
     vals, rows = sort_desc_by_value_then_index(scores, cols)
     k_eff = min(top_k, k_g * SUB)

@@ -26,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tdr_torch.ops import cuda_build
+from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.ops.tf32 import tf32_split
 from tdr_torch.ops.topk import fast_topk, sort_desc_by_value_then_index
 
@@ -66,6 +67,7 @@ def fused_head_available(index, top_k: int = 10, sub: int = SUB) -> bool:
                             sub) > 0
 
 
+@ieee_f32()
 def fused_head_blockmax_plain(Wc: torch.Tensor, head: torch.Tensor,
                               rows: torch.Tensor, n_active: torch.Tensor,
                               bias: torch.Tensor) -> torch.Tensor:
@@ -221,11 +223,13 @@ def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
     C = cols.shape[1]
     q_chunk = max(1, _RESCORE_ELEMS // max(T * C, 1))
     scores = torch.empty((Q, C), dtype=torch.float32, device=dev)
+    # an elementwise product and a sum, not bmm: full f32 whatever the
+    # caller's TF32 setting, and no process-wide pin on the hot path
     for q0 in range(0, Q, q_chunk):
         s0, c0 = slot0[q0:q0 + q_chunk], cols[q0:q0 + q_chunk]
-        rows_cand = head[s0[:, :, None], c0[:, None, :]].float()   # (Qc, T, C)
-        scores[q0:q0 + q_chunk] = torch.bmm(
-            w_eff[q0:q0 + q_chunk, None, :], rows_cand)[:, 0]
+        rows_cand = head[s0[:, :, None], c0[:, None, :]]       # (Qc, T, C)
+        scores[q0:q0 + q_chunk] = (w_eff[q0:q0 + q_chunk, :, None]
+                                   * rows_cand).sum(dim=1)
     scores = scores + bias[cols]
     vals, rows = sort_desc_by_value_then_index(scores, cols)
     k_eff = min(top_k, k_g * SUB)

@@ -24,6 +24,7 @@ import torch
 
 from tdr_torch.index.build import SparseIndex
 from tdr_torch.ops.fused_head import fused_head_topk, query_weight_matrix
+from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.ops.scan import xla_cumsum
 from tdr_torch.ops.tail_compact import tail_compact
 from tdr_torch.ops.topk import fast_topk, topk_grouped
@@ -61,14 +62,18 @@ def _head_scores_matmul(index: SparseIndex, qids: torch.Tensor,
     """Head scores as one full-head product, (Q, N_pad) f32.  On CUDA a bf16
     head contracts in bf16 with f32 output (a library product: this large
     matmul sits outside any TPU kernel in the JAX package too); on the CPU
-    both operands are upcast to f32, which is exact for bf16 inputs."""
+    both operands are upcast to f32, which is exact for bf16 inputs.  An f32
+    head multiplies in full IEEE f32 whatever the caller's TF32 setting; the
+    bf16 and int8 products need no pin (bf16 values are exact in TF32, and
+    ``out_dtype=float32`` and ``_int_mm`` accumulate in f32 and int32)."""
     W, _, _ = query_weight_matrix(index, qids, qw)
     rows = index.head_rows
     if rows.dtype == torch.int8:
         return int8_head_matmul(W, rows) * index.head_scale[None, :]
     W = W.to(rows.dtype)
     if rows.dtype == torch.float32:
-        return W @ rows
+        with ieee_f32():
+            return W @ rows
     if rows.is_cuda:
         return torch.mm(W, rows, out_dtype=torch.float32)
     return W.float() @ rows.float()
@@ -94,10 +99,11 @@ def _head_scores_capped(index: SparseIndex, qids: torch.Tensor,
     rows = index.head_rows
     scores = torch.zeros((Q, index.n_docs_pad), dtype=torch.float32,
                          device=rows.device)
-    for c0 in range(0, TH, _HEAD_CHUNK):
-        s = slot_c[:, c0:c0 + _HEAD_CHUNK]
-        w = w_eff[:, c0:c0 + _HEAD_CHUNK]
-        scores = scores + torch.bmm(w[:, None, :], rows[s].float())[:, 0]
+    with ieee_f32():            # the weights are f32 whatever the head's dtype
+        for c0 in range(0, TH, _HEAD_CHUNK):
+            s = slot_c[:, c0:c0 + _HEAD_CHUNK]
+            w = w_eff[:, c0:c0 + _HEAD_CHUNK]
+            scores = scores + torch.bmm(w[:, None, :], rows[s].float())[:, 0]
     if rows.dtype == torch.int8:
         scores = scores * index.head_scale[None, :]
     return scores, overflow

@@ -1,15 +1,19 @@
 """Tail-posting compaction: the port of ``tdr/ops/pallas_tail.py``.
 
 For each query, the tail terms (active, not in the head) are compacted to
-at most ``MT = 16`` per query in torch (a stable T-wide sort, as the JAX
-code does outside its kernel), their segment lengths are scanned into
-compacted offsets ``min(Σ_{s<t} len_s, budget)``, and then the CUDA kernel
-``tdr_torch/csrc/tail_compact.cu`` copies each term's contiguous CSR
-segment into a row of width W.  Dead lanes hold ``(n_docs_pad, -1.0)``,
-the encoding ``score._fused_topk_core``'s doc-sort consumes.
+at most ``MT = min(16, T)`` per query, in term order; their segment lengths
+are scanned into compacted offsets ``min(Σ_{s<t} len_s, budget)``; and each
+term's contiguous CSR segment lands in a row of width W at its offset, a
+later term overwriting an earlier one where clamped offsets overlap.  Dead
+lanes hold ``(n_docs_pad, -1.0)``, the encoding
+``score._fused_topk_core``'s doc-sort consumes.  A query overflows with
+more than MT tail terms or more than ``budget`` postings in its kept ones.
 
-``tail_compact_rows`` launches the kernel for CUDA tensors and takes the
-plain version, ``tail_compact_rows_plain``, only for CPU tensors.
+``tail_compact`` does all of it in one launch of the CUDA kernel
+``tdr_torch/csrc/tail_compact.cu`` for CUDA tensors, and takes the plain
+version, ``tail_compact_plain`` (the stable sort and scan of
+``tail_segments``, then the segment copy of ``tail_compact_rows_plain``),
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from tdr_torch.index.build import SparseIndex
 from tdr_torch.ops import cuda_build
 
 DEFAULT_MAX_TAIL_TERMS = 16
+_MAX_KERNEL_TERMS = 32     # MT is kept by one warp
 _ALIGN = 1024
 
 
@@ -66,50 +71,11 @@ def tail_compact_rows_plain(
     return docs, vals
 
 
-def tail_compact_rows(
-    postings_doc: torch.Tensor, postings_w: torch.Tensor,
-    starts: torch.Tensor, lens: torch.Tensor, offs: torch.Tensor,
-    qw: torch.Tensor, width: int, sentinel: int, tail_pmax: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment copy into (docs (Q, width) int32, vals (Q, width) f32): the
-    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if not postings_doc.is_cuda:
-        return tail_compact_rows_plain(postings_doc, postings_w, starts, lens,
-                                       offs, qw, width, sentinel, tail_pmax)
-    Q, MT = starts.shape
-    for name, t, dt in (("postings_doc", postings_doc, torch.int32),
-                        ("postings_w", postings_w, torch.float32),
-                        ("starts", starts, torch.int32),
-                        ("lens", lens, torch.int32),
-                        ("offs", offs, torch.int32),
-                        ("qw", qw, torch.float32)):
-        if t.device != postings_doc.device or t.dtype != dt:
-            raise ValueError(f"tail_compact: {name} must be {dt} on "
-                             f"{postings_doc.device}, got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"tail_compact: {name} must be contiguous")
-    for name, t in (("lens", lens), ("offs", offs), ("qw", qw)):
-        if tuple(t.shape) != (Q, MT):
-            raise ValueError(f"tail_compact: {name} has shape {tuple(t.shape)}, "
-                             f"expected {(Q, MT)}")
-    docs = torch.empty((Q, width), dtype=torch.int32, device=postings_doc.device)
-    vals = torch.empty((Q, width), dtype=torch.float32, device=postings_doc.device)
-    lib = cuda_build.lib()
-    err = lib.tdr_tail_compact(
-        postings_doc.data_ptr(), postings_w.data_ptr(), starts.data_ptr(),
-        lens.data_ptr(), offs.data_ptr(), qw.data_ptr(), docs.data_ptr(),
-        vals.data_ptr(), Q, MT, width, sentinel,
-        cuda_build.current_stream(postings_doc.device))
-    cuda_build.check(err, "tail_compact")
-    cuda_build.launches["tail_compact"] += 1
-    return docs, vals
-
-
 def tail_segments(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
                   budget: int, max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS):
-    """Level-1 term compaction and the offset scan (torch, outside the
-    kernel): (starts, lens, offs, qw_c) each (Q, MT), and overflow (Q,) for
-    queries with more than MT tail terms or more than ``budget`` slots."""
+    """Level-1 term compaction and the offset scan of the plain version:
+    (starts, lens, offs, qw_c) each (Q, MT), and overflow (Q,) for queries
+    with more than MT tail terms or more than ``budget`` slots."""
     Q, T = qids.shape
     qids = qids.clamp(0, index.vocab_size - 1).long()
     slot = index.head_slot[qids]
@@ -135,16 +101,60 @@ def tail_segments(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
             qw_c.contiguous(), overflow)
 
 
-def tail_compact(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
-                 budget: int, max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Compacted tail slots: (docs (Q, W), vals (Q, W), overflow (Q,)) with
-    W >= budget + tail_pmax; vals == -1 marks dead lanes
-    (``tdr.ops.pallas_tail.tail_compact_pallas``'s contract)."""
+def tail_compact_plain(index: SparseIndex, qids: torch.Tensor,
+                       qw: torch.Tensor, budget: int,
+                       max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: ``tail_segments`` then
+    ``tail_compact_rows_plain``."""
     starts, lens, offs, qw_c, overflow = tail_segments(
         index, qids, qw, budget, max_tail_terms)
     width = row_width(budget, index.tail_pmax)
-    docs, vals = tail_compact_rows(
+    docs, vals = tail_compact_rows_plain(
         index.postings_doc, index.postings_w, starts, lens, offs, qw_c,
         width, index.n_docs_pad, index.tail_pmax)
+    return docs, vals, overflow
+
+
+def tail_compact(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
+                 budget: int, max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compacted tail slots: (docs (Q, W) int32, vals (Q, W) f32, overflow
+    (Q,) bool) with W = ``row_width(budget, tail_pmax)``; vals == -1 marks
+    dead lanes (``tdr.ops.pallas_tail.tail_compact_pallas``'s contract).  On
+    CUDA tensors one launch of the kernel does it all, term compaction
+    included; on CPU tensors the plain version runs."""
+    if not qids.is_cuda:
+        return tail_compact_plain(index, qids, qw, budget, max_tail_terms)
+    Q, T = qids.shape
+    MT = min(max_tail_terms, T)
+    dev = qids.device
+    tensors = (("qids", qids, torch.int32), ("qw", qw, torch.float32),
+               ("head_slot", index.head_slot, torch.int32),
+               ("df", index.stats.df, torch.float32),
+               ("indptr", index.indptr, torch.int32),
+               ("postings_doc", index.postings_doc, torch.int32),
+               ("postings_w", index.postings_w, torch.float32))
+    for name, t, dt in tensors:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"tail_compact: {name} must be a contiguous {dt} "
+                             f"tensor on {dev}, got {t.dtype} on {t.device}")
+    if tuple(qw.shape) != (Q, T) or MT > _MAX_KERNEL_TERMS:
+        raise ValueError(f"tail_compact: qids {tuple(qids.shape)}, qw "
+                         f"{tuple(qw.shape)}, max_tail_terms {max_tail_terms} "
+                         f"(the kernel keeps at most {_MAX_KERNEL_TERMS})")
+    width = row_width(budget, index.tail_pmax)
+    docs = torch.empty((Q, width), dtype=torch.int32, device=dev)
+    vals = torch.empty((Q, width), dtype=torch.float32, device=dev)
+    overflow = torch.empty(Q, dtype=torch.bool, device=dev)
+    err = cuda_build.lib().tdr_tail_compact_fused(
+        qids.data_ptr(), qw.data_ptr(), index.head_slot.data_ptr(),
+        index.stats.df.data_ptr(), index.indptr.data_ptr(),
+        index.postings_doc.data_ptr(), index.postings_w.data_ptr(),
+        docs.data_ptr(), vals.data_ptr(), overflow.data_ptr(), Q, T, MT,
+        width, budget, index.vocab_size, max(int(index.tail_pmax), 1),
+        index.postings_doc.numel(), index.n_docs_pad,
+        cuda_build.current_stream(dev))
+    cuda_build.check(err, "tail_compact")
+    cuda_build.launches["tail_compact"] += 1
     return docs, vals, overflow
