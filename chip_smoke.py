@@ -77,7 +77,19 @@ Phases, in order (any failure exits non-zero and prints no result line):
    scatter lists and the f32 dense copy against the plain engine, at
    unchanged tolerances, the flag read back after each, a verdict for
    each check and one failure at the end, then restored.  The script sets
-   no precision flag of its own.
+   no precision flag of its own;
+10. the sentence-BM25 -> BERT re-rank cascade (bench.py:417-507), after
+   9c: 100,000 en docs x 6 sentences (seed 7; 200 dev and 500 eval
+   queries), ``SentenceBM25`` under a 1 GiB head budget, a
+   ``BertEncoder`` at MiniLM-L12 width and f32 with seeded random weights
+   in a ``DenseModel`` (32 tokens), ``SentenceLmCascade`` with 100
+   candidates: the card's encoder within 1e-4 of the same module on the
+   CPU (64 sentences), the embedding pass (seconds, share of the f32
+   peak), ``tune_fusion_alpha`` on dev, a warm call, the eval pass with
+   its stage-1 lists (counts set to 0 just before, read just after; K1
+   must launch), 3 timed passes whose lists must equal it; stage-1
+   recall@10 and candidate ceiling held to the JAX 0.696 and 0.924
+   (+-0.003), alpha 1 without doc evidence equal to the stage-1 order.
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
@@ -1294,6 +1306,157 @@ def cascade_phase(reps, n_docs=207_363, n_queries=1000):
     return counts
 
 
+def bert_token_flops(cfg, seq_len: int) -> float:
+    """FLOP of one token through a BERT stack at ``seq_len`` (the padded
+    length every position runs at): the q/k/v/out and MLP products plus the
+    attention's two (seq_len x head_dim) products per head, 2 per MAC."""
+    dense = 4 * cfg.dim * cfg.dim + 2 * cfg.dim * cfg.mlp_hidden
+    return 2.0 * cfg.depth * (dense + 2 * seq_len * cfg.dim)
+
+
+def sentence_phase(n_docs=100_000, n_dev=200, n_eval=500, seq_len=32,
+                   profile=False):
+    """10: the sentence-BM25 -> BERT re-rank cascade at MiniLM-L12 width on
+    the JAX bench's sentence corpus (bench.py:417-422, :463-507), with
+    random seeded weights (the pretrained checkpoint is not in the
+    repository).  ``profile`` traces 32 batches of the embedding pass and
+    one eval pass."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tdr_torch.data import SyntheticSpec, synthetic_corpus
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.models.convert import init_bert_encoder, minilm_l12_config
+    from tdr_torch.models.dense import DenseModel
+    from tdr_torch.models.encoder import encode
+    from tdr_torch.rank import SentenceBM25, SentenceLmCascade
+    from tdr_torch.text.hash_tokenizer import encode_batch
+    from tdr_torch.utils.config import DenseConfig, IndexConfig
+
+    t_phase = time.perf_counter()
+    corpus, queries = synthetic_corpus(SyntheticSpec(
+        n_docs=n_docs, n_queries=n_dev + n_eval, seed=7, hard=True,
+        ref_proportions=False, langs=("en",), sentences_per_doc=6))
+    t0 = time.perf_counter()
+    sb = SentenceBM25.build(corpus.docids, corpus.texts, "en",
+                            index_cfg=IndexConfig(head_budget_bytes=1 << 30),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ix = sb.model.index
+    S = len(sb.texts)
+    say(f"[10 sentence cascade] {n_docs} docs -> {S} sentences; index head "
+        f"{ix.head_size} of vocab {ix.vocab_size}, tail_pmax "
+        f"{ix.tail_pmax}; corpus + build {time.perf_counter() - t_phase:.1f} "
+        f"s (build {build_s:.1f} s)")
+
+    bcfg = minilm_l12_config()
+    bert = init_bert_encoder(bcfg, seed=0, device=DEVICE)
+    dense = DenseModel.build(bert, DenseConfig(
+        vocab_size=bcfg.vocab_size, dim=bcfg.dim, max_len=seq_len),
+        corpus.texts[:1], corpus.docids[:1], batch=32)
+
+    # the card's encoder against the same module on the CPU
+    ids, mask = encode_batch(sb.texts[:64], bcfg.vocab_size, seq_len)
+    on_card = encode(bert, ids, mask).cpu()
+    on_cpu = encode(copy.deepcopy(bert).cpu(), ids, mask)
+    enc_err = (on_card - on_cpu).abs().max().item()
+    need(enc_err <= 1e-4, f"10: the card's BertEncoder differs from the "
+                          f"CPU's by {enc_err:.3g} (limit 1e-4)")
+
+    lm = SentenceLmCascade({"en": sb}, dense, bm25_candidates=100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb.precompute_embeddings(dense)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    flops = S * seq_len * bert_token_flops(bcfg, seq_len)
+    need(tuple(sb.embeddings.shape) == (S, bcfg.dim)
+         and bool(torch.isfinite(sb.embeddings).all()),
+         f"10: sentence embeddings {tuple(sb.embeddings.shape)} not finite "
+         f"or not (S, {bcfg.dim})")
+    say(f"[10 sentence cascade] embedding pass: {S} sentences x {seq_len} "
+        f"tokens through MiniLM-L12 at f32 in {embed_s:.2f} s -> "
+        f"{S / embed_s:.0f} sentences/s, {flops:.3g} FLOP at "
+        f"{flops / embed_s / 1e12:.1f} TFLOP/s = "
+        f"{flops / PEAK_F32_FLOPS / embed_s:.1%} of the f32 peak (bound "
+        f"{flops / PEAK_F32_FLOPS:.1f} s); card vs CPU encoder on 64 "
+        f"sentences: max |diff| {enc_err:.3g}")
+
+    dev_q, dev_l = queries.queries[:n_dev], queries.langs[:n_dev]
+    ev_q, ev_l = queries.queries[n_dev:], queries.langs[n_dev:]
+    ev_p = queries.positive_docs[n_dev:]
+
+    # stage 2 on the card (gather, product, packed pull) against tdr's host
+    # einsum (tdr/rank/sentence.py:284-286) on one eval chunk: the stage-1
+    # rows of the same chunk, the embeddings pulled whole to the host
+    nq = min(lm.query_batch, len(ev_q))
+    (chunk,) = lm._run_stages(ev_q[:nq], ev_l[:nq])
+    _, _, c_vals, c_valid, c_sims, _ = chunk
+    s1_vals, s1_rows = sb.model.topk_tokens(
+        lm._tokenize(ev_q, range(nq), "en"), lm.bm25_candidates, pad_to=nq)
+    emb = sb.embeddings.cpu().numpy()
+    q_emb = dense.encode_queries(ev_q[:nq]).cpu().numpy()
+    ref = np.einsum("gmd,gd->gm", emb[np.clip(s1_rows, 0, S - 1)], q_emb)
+    del emb
+    s2_err = float(np.abs(np.where(c_valid, c_sims - ref, 0.0)).max())
+    need(np.array_equal(c_vals, s1_vals) and c_valid.any(),
+         "10: the stage-2 chunk's scores are not its stage-1 scores")
+    need(s2_err <= 1e-5, f"10: stage-2 similarities differ from the host "
+                         f"einsum by {s2_err:.3g} (limit 1e-5)")
+    say(f"[10 sentence cascade] stage 2 on {nq} queries x "
+        f"{lm.bm25_candidates} candidates against the host einsum: max "
+        f"|diff| {s2_err:.3g}")
+    t0 = time.perf_counter()
+    alpha, curve = lm.tune_fusion_alpha(dev_q, dev_l,
+                                        queries.positive_docs[:n_dev], k=10)
+    tune_s = time.perf_counter() - t0
+    warm = ev_q[:lm.query_batch]
+    lm.retrieve(warm, ev_l[:len(warm)], k=10)
+    (res, s1), counts = counted(lambda: lm.retrieve(ev_q, ev_l, k=10,
+                                                    with_stage1=True))
+    need(counts["tail_compact"] > 0,
+         f"10: K1 never launched on the sentence path {counts}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = lm.retrieve(ev_q, ev_l, k=10, with_stage1=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        need(again == (res, s1), "10: two retrieve calls gave other lists")
+    med = statistics.median(times)
+    r_lm = recall_at_k(res, ev_p, 10)
+    r_s1 = recall_at_k(s1, ev_p, 10)
+    ceiling = recall_at_k(s1, ev_p, max(len(r) for r in s1))
+    one = dataclasses.replace(lm, fusion_alpha=1.0, doc_agg_weight=0.0)
+    r_one = one.retrieve(ev_q, ev_l, k=10)
+    need(r_one == [r[:10] for r in s1]
+         and recall_at_k(r_one, ev_p, 10) == r_s1,
+         "10: fusing at alpha 1 without doc evidence is not the stage-1 "
+         "order")
+    say(f"[10 sentence cascade] dev tune {tune_s:.2f} s: alpha "
+        f"{alpha} doc_agg {lm.doc_agg_weight} (best dev recall "
+        f"{max(curve.values()):.4f}); {len(ev_q)} eval queries: median "
+        f"{med:.4f} s of {[round(t, 4) for t in times]} -> "
+        f"{len(ev_q) / med:.1f} queries/s; recall@10 LM cascade {r_lm:.4f} "
+        f"(random weights: reported only), stage-1 {r_s1:.4f}, candidate "
+        f"ceiling {ceiling:.4f}; alpha 1 == stage 1; lists deterministic; "
+        f"launches in one pass {counts}")
+    if profile:
+        profile_pass("sentence embedding, 32 batches of 256",
+                     lambda: dense.encode_queries(sb.texts[:32 * 256]))
+        profile_pass("sentence cascade", lambda: lm.retrieve(
+            ev_q, ev_l, k=10, with_stage1=True))
+    check_recall("10 sentence stage-1", r_s1, 0.696)
+    need(abs(ceiling - 0.924) <= 0.003 + 1e-9,
+         f"10: candidate ceiling {ceiling:.4f} outside 0.924 +- 0.003 (the "
+         f"JAX ceiling on this corpus)")
+    del lm, one, dense, bert, sb
+    say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def checkpoint_phase(models, queries):
     """8f: save_registry / load_registry of the seven models; the loaded
     router's top-10 equals the built one's."""
@@ -1490,8 +1653,9 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--reps", type=int, default=5, help="timed passes")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more sparse, dense, PRF and f32-head "
-                         "sparse pass with "
+                    help="trace one more sparse, dense, PRF, f32-head "
+                         "sparse and sentence-cascade pass (and 32 batches "
+                         "of the sentence embedding pass) with "
                          "torch.profiler: device time by kernel and the "
                          "device's busy share")
     ap.add_argument("--trace-out", default=None,
@@ -1731,6 +1895,13 @@ def main() -> None:
     tf32_phase(f32_models, f32_ref, flat, q_enc, bench_emb, bench_q)
     del f32_models, flat
     say(f"phase 9c: {time.perf_counter() - t9:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the sentence-BM25 -> BERT re-rank cascade ----------------
+    sent_counts = sentence_phase(profile=args.profile)
+    for rec in (rec_k1, rec_k2):
+        rec["launches_by_path"]["sentence_cascade"] = sent_counts[rec["name"]]
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,

@@ -178,7 +178,13 @@ def _build_core(
     if weight_kind == "tfidf":
         sq = torch.zeros(n_docs_pad, dtype=torch.float32, device=dev)
         sq.index_add_(0, d_clamped, w * w)
-        inv = torch.where(sq > 0, torch.rsqrt(sq), torch.zeros_like(sq))
+        # rsqrt in f64, rounded once to f32: the f32 rsqrt rounds twice on
+        # the CPU (1/sqrt) and is approximate on the card.  The reference
+        # (XLA:CPU) approximates too, from the CPU's own rsqrt instruction,
+        # which no port can replay; the correctly rounded norm is the
+        # nearest f32 to both.
+        inv = torch.where(sq > 0, torch.rsqrt(sq.double()).float(),
+                          torch.zeros_like(sq))
         w = w * inv[d_clamped]
 
     # CSR layout: stable sort by term id (padding term_id == V sorts last)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from tdr_torch.index.build import _tensor_from_saved
-from tdr_torch.models.encoder import DualEncoder, encode
+from tdr_torch.models.encoder import encode, module_device
 from tdr_torch.ops.fused_flat import (fused_flat_available, fused_flat_topk,
                                       quantize_queries_int8)
 from tdr_torch.ops.precision import ieee_f32
@@ -486,13 +486,13 @@ def _ivf_search_chunk(index: IvfIndex, q: torch.Tensor, top_k: int,
 # Encoding
 # --------------------------------------------------------------------------
 
-def _encode_texts(model: DualEncoder, cfg: DenseConfig, texts: Sequence[str],
-                  batch: int = 256) -> torch.Tensor:
+def _encode_texts(model: torch.nn.Module, cfg: DenseConfig,
+                  texts: Sequence[str], batch: int = 256) -> torch.Tensor:
     """Batched encoder forward over a text list → (n, dim) f32 embeddings on
     the model's device.  Batches are padded with empty texts to
     ``_pad_target``; nothing is copied to the host (``tdr`` pulls groups of
     batches to the host instead)."""
-    dev = model.tok_embed.weight.device
+    dev = module_device(model)
     if not texts:
         return torch.zeros((0, cfg.dim), dtype=torch.float32, device=dev)
     outs = []
@@ -513,20 +513,23 @@ def _encode_texts(model: DualEncoder, cfg: DenseConfig, texts: Sequence[str],
 @dataclass
 class DenseModel:
     """Encoder + corpus embedding index, mirroring the reference's
-    embed-then-FAISS pipeline as one object.  The encoder holds its own
-    weights (``tdr`` passes a flax param tree beside the module)."""
+    embed-then-FAISS pipeline as one object.  The encoder is the trainable
+    ``DualEncoder`` or the HF-architecture ``BertEncoder``
+    (``models.convert``); it holds its own weights (``tdr`` passes a flax
+    param tree beside the module).  ``cfg`` gives the tokenizer's vocab and
+    ``max_len`` and the embedding width."""
 
-    model: DualEncoder
+    model: torch.nn.Module
     cfg: DenseConfig
     docids: List[str]
     flat: Optional[FlatIndex] = None
     ivf: Optional[IvfIndex] = None
 
     @classmethod
-    def build(cls, model: DualEncoder, cfg: DenseConfig,
+    def build(cls, model: torch.nn.Module, cfg: DenseConfig,
               texts: Sequence[str], docids: Sequence[str], batch: int = 256,
               with_ivf: bool = False) -> "DenseModel":
-        dev = model.tok_embed.weight.device
+        dev = module_device(model)
         emb = _encode_texts(model, cfg, texts, batch)
         out = cls(model=model, cfg=cfg, docids=list(docids),
                   flat=build_flat_index(emb, device=dev))

@@ -54,10 +54,12 @@ def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: f32 statistics with the fast
-    variance, epsilon 1e-6, f32 output."""
+    variance, epsilon ``eps`` (flax's 1e-6 by default; BERT uses 1e-12),
+    f32 output."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = _LN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -65,7 +67,7 @@ class LayerNorm(nn.Module):
         x = x.float()
         mu = x.mean(dim=-1, keepdim=True)
         var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        mul = torch.rsqrt(var + _LN_EPS) * self.weight
+        mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mu) * mul + self.bias
 
 
@@ -176,10 +178,16 @@ def init_encoder(cfg: DenseConfig, seed: int = 0,
     return model.to(dev).eval()
 
 
-def encode(model: DualEncoder, ids, mask) -> torch.Tensor:
+def module_device(model: nn.Module) -> torch.device:
+    """The device of an encoder's parameters (any encoder module)."""
+    return next(model.parameters()).device
+
+
+def encode(model: nn.Module, ids, mask) -> torch.Tensor:
     """(B, L) ids and mask (numpy or tensors) → (B, dim) f32 embeddings on
-    the model's device."""
-    dev = model.tok_embed.weight.device
+    the model's device, for any encoder module (``DualEncoder``,
+    ``convert.BertEncoder``)."""
+    dev = module_device(model)
     with torch.inference_mode():
         return model(torch.as_tensor(ids, device=dev),
                      torch.as_tensor(mask, device=dev))

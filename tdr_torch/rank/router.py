@@ -181,24 +181,32 @@ def _waterfill_head_budget(
     return alloc
 
 
-def _gather_results(vals_list: List[torch.Tensor], rows_list: List[torch.Tensor]
-                    ) -> Tuple[np.ndarray, np.ndarray]:
+def _gather_results(vals_list: List[torch.Tensor], rows_list: List[torch.Tensor],
+                    extra_list: Optional[List[torch.Tensor]] = None) -> tuple:
     """Stack the per-batch (B, k) results on the device and bring them to
     the host in ONE copy: scores travel as their int32 bit patterns beside
     the int32 rows, so one tensor holds both.  Batches of other shapes are
     padded on the device to the largest (scores with -inf, rows with 0);
-    callers slice each back to its own rows and width."""
+    callers slice each back to its own rows and width.  ``extra_list``,
+    float blocks of the same batches and no larger (the sentence cascade's
+    similarities), comes back in the same copy as a third array."""
     b = max(v.shape[0] for v in vals_list)
     w = max(v.shape[1] for v in vals_list)
     pad = torch.nn.functional.pad
-    vals = [pad(v.float(), (0, w - v.shape[1], 0, b - v.shape[0]),
-                value=float("-inf")) for v in vals_list]
+
+    def floats(blocks):
+        return torch.stack([pad(v.float(), (0, w - v.shape[1], 0, b - v.shape[0]),
+                                value=float("-inf")) for v in blocks]
+                           ).view(torch.int32)
+
     rows = [pad(r.to(torch.int32), (0, w - r.shape[1], 0, b - r.shape[0]))
             for r in rows_list]
-    packed = torch.stack([torch.stack(vals).view(torch.int32),
-                          torch.stack(rows)])
-    host = packed.cpu().numpy()
-    return host[0].view(np.float32), host[1]
+    slabs = [floats(vals_list), torch.stack(rows)]
+    if extra_list is not None:
+        slabs.append(floats(extra_list))
+    host = torch.stack(slabs).cpu().numpy()
+    out = (host[0].view(np.float32), host[1])
+    return out if extra_list is None else out + (host[2].view(np.float32),)
 
 
 @dataclass

@@ -7,6 +7,19 @@ the tests); whole PRF passes return the
 same top-k (scores within rtol 1e-6 plus the tail sums' cumsum rounding,
 ``CUMSUM_ATOL``, as in test_torch_score_modes.py; ranks equal but for
 near-ties).
+
+The vocabularies here give term ids in order of first appearance
+(``_vocab``).  ``build_vocab`` numbers terms in ``set`` order, which follows
+the process's string-hash seed, so every pytest-xdist worker saw other ids.
+Under some of them (and under first appearance) a near-tie sat at the edge
+of the top-E expansion choice, and the TF-IDF posting weights of the two
+builds, an ulp apart, tipped it: a whole PRF pass appended another term.
+The port's build then took ``rsqrt`` in two f32 roundings and XLA:CPU takes
+it from the CPU's approximate instruction; it now rounds the f64 value once
+(``test_torch_build.py`` holds the build).  ``test_model_knobs_match_jax``
+runs each side on its own index; ``test_tfidf_prf_matches_jax_any_ids``
+runs other id orders, its expansion check on the JAX-built index
+(``_models(same_index=True)``) so that it isolates the feedback step.
 """
 
 import dataclasses
@@ -22,6 +35,7 @@ from tdr.index import build_index  # noqa: E402
 from tdr.models import sparse as jsparse  # noqa: E402
 from tdr.rank import feedback as jfb  # noqa: E402
 from tdr.text import build_vocab, encode_docs  # noqa: E402
+from tdr.text.vocab import Vocab  # noqa: E402
 from tdr.text.spell import TrigramRepairer as JRepairer  # noqa: E402
 from tdr.utils.config import IndexConfig  # noqa: E402
 from tdr_torch.models import sparse as tsparse  # noqa: E402
@@ -41,8 +55,23 @@ def _docs(seed, n_docs=160, vocab_n=300):
             for _ in range(n_docs)]
 
 
-def _models(docs, cls="BM25Model", **cfg):
-    vocab = build_vocab(docs)
+def _vocab(docs, perm_seed=None):
+    """``build_vocab``'s terms and dfs with ids in order of first appearance
+    (the same in every process), or in a seeded random order."""
+    v = build_vocab(docs)
+    terms = list(dict.fromkeys(t for d in docs for t in d))
+    if perm_seed is not None:
+        terms = [terms[i] for i in np.random.RandomState(perm_seed).permutation(
+            len(terms))]
+    df = np.asarray([v.df[v.term_to_id[t]] for t in terms], np.int32)
+    return Vocab({t: i for i, t in enumerate(terms)}, df, v.n_docs)
+
+
+def _models(docs, cls="BM25Model", perm_seed=None, same_index=False, **cfg):
+    """The JAX and the port's model over one vocabulary; ``same_index``
+    gives the port the JAX-built index (``carry``), so that what is
+    compared is the scoring and feedback, not the build's rounding."""
+    vocab = _vocab(docs, perm_seed)
     coo = encode_docs(docs, vocab)
     ids = [f"d{i}" for i in range(len(docs))]
     c = {**CFG, **cfg}
@@ -51,6 +80,8 @@ def _models(docs, cls="BM25Model", **cfg):
     tm = getattr(tsparse, cls).from_coo(vocab, coo, ids,
                                         index_cfg=tconfig.IndexConfig(**c),
                                         device="cpu")
+    if same_index:
+        tm = dataclasses.replace(tm, index=carry(jm.index))
     return jm, tm
 
 
@@ -69,7 +100,7 @@ def test_doc_major_matches_jax(case):
     else:   # one 1,500-term doc: truncated to MAX_P_DOC of its terms
         docs = [[f"w{j}" for j in range(1500)]] + [[f"a{i}_{j}" for j in range(5)]
                                                    for i in range(30)]
-    vocab = build_vocab(docs)
+    vocab = _vocab(docs)
     coo = encode_docs(docs, vocab)
     j = build_index(*coo, vocab.size, index_cfg=IndexConfig(**CFG), head_size=16)
     _same_dmi(jfb.build_doc_major(j), tfb.build_doc_major(carry(j)))
@@ -135,6 +166,43 @@ def test_prf_expand_matches_jax(beta):
     assert tq.shape[1] == qids.shape[1] + 5 and (tw[:, -5:] > 0).any()
 
 
+def _knob_queries(docs):
+    rng = np.random.RandomState(4)
+    queries = [list(docs[rng.randint(len(docs))][:4]) for _ in range(20)]
+    for q in queries[::3]:                        # typos: drop one letter
+        q[0] = q[0][:1] + q[0][2:]
+    return queries
+
+
+@pytest.mark.parametrize("perm_seed", [0, 1, 2, 3, 4, 5])
+def test_tfidf_prf_matches_jax_any_ids(perm_seed):
+    """The TF-IDF PRF case of ``test_model_knobs_match_jax`` under other
+    term-id orders (as other hash seeds gave them): the same expansion from
+    the same index and first pass, and the same whole PRF pass with each
+    side on its own index."""
+    docs = _docs(9, n_docs=240)
+    jm, tm = _models(docs, "TfidfCosineModel", perm_seed=perm_seed,
+                     same_index=True)
+    queries = _knob_queries(docs)
+    qids, qw = jm.encode_query_tokens_np(queries)
+    fb_vals, fb_rows = jm._score_encoded(jnp.asarray(qids), jnp.asarray(qw), 3)
+    kw = dict(n_expand=5, n_feedback=3, beta=0.3, min_docs=2)
+    jq, jw = jfb.prf_expand(jm._doc_major(), jm.index.vocab_size,
+                            jnp.asarray(qids), jnp.asarray(qw), fb_vals,
+                            fb_rows, **kw)
+    tq, tw = tfb.prf_expand(tm._doc_major(), tm.index.vocab_size,
+                            torch.from_numpy(qids), torch.from_numpy(qw),
+                            torch.from_numpy(np.array(fb_vals)),
+                            torch.from_numpy(np.array(fb_rows)), **kw)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-5)
+    jm, tm = (dataclasses.replace(m, prf=True) for m in
+              _models(docs, "TfidfCosineModel", perm_seed=perm_seed))
+    jv, jr = jm.topk_tokens(queries, 10)
+    tv, tr = tm.topk_tokens(queries, 10)
+    assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=CUMSUM_ATOL)
+
+
 @pytest.mark.parametrize("cls,knobs", [
     ("BM25Model", dict(prf=True)),
     ("BM25Model", dict(prf=True, prf_docs=5, prf_terms=8, prf_beta=0.5,
@@ -148,10 +216,7 @@ def test_model_knobs_match_jax(cls, knobs):
     docs = _docs(9, n_docs=240)
     jm, tm = _models(docs, cls)
     jm, tm = dataclasses.replace(jm, **knobs), dataclasses.replace(tm, **knobs)
-    rng = np.random.RandomState(4)
-    queries = [list(docs[rng.randint(len(docs))][:4]) for _ in range(20)]
-    for q in queries[::3]:                        # typos: drop one letter
-        q[0] = q[0][:1] + q[0][2:]
+    queries = _knob_queries(docs)
     for batch in (queries, queries[:1]):          # matmul and gather heads
         jv, jr = jm.topk_tokens(batch, 10)
         tv, tr = tm.topk_tokens(batch, 10)
