@@ -6,13 +6,15 @@
     <dir>/<lang>/docids.txt, meta.json
     <dense dir>/params.npz, index.npz, docids.txt, meta.json
     <segmented dir>/main/..., segments.json
+    <train dir>/train_state.npz, meta.json
 
 Files written by either package load in the other: a bf16 array is stored
 as its uint16 bits with the dtype string beside it, an int8 head carries
 ``head_scale``, and a dense model's ``p{i}`` leaves follow flax's flatten
 order of the encoder's param tree (the keys sorted at every level).
-Sharded indexes and training state wait for the parallel and training
-slices.
+A training state (``save_train_state``) stores jax's flattened
+``TrainState`` leaves, so either package resumes from the other's file.
+Sharded indexes wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -50,6 +52,14 @@ def _to_numpy_savable(x: torch.Tensor) -> Tuple[np.ndarray, str]:
         return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = x.numpy()
     return arr, str(arr.dtype)
+
+
+def _f32_from_saved(arr: np.ndarray, dtype: str) -> np.ndarray:
+    """A saved float leaf as f32 numpy (bf16 is stored as its uint16 bits)."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).float().numpy()
+    return np.asarray(arr, np.float32)
 
 
 def _check_version(meta: dict) -> None:
@@ -208,17 +218,17 @@ def _flatten_sorted(tree, prefix=()) -> List[Tuple[tuple, tuple]]:
     return out
 
 
-def _flax_tree_from_state(model) -> dict:
-    """The inverse of ``encoder_state_from_flax``: this module's weights as
+def _flax_tree_from_state(cfg, sd) -> dict:
+    """The inverse of ``encoder_state_from_flax``: a ``DualEncoder``
+    state-dict-shaped mapping (its weights, or an AdamW moment of each) as
     the flax param tree (numpy f32, flax shapes)."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in
-          model.state_dict().items()}
-    shapes = _flax_param_shapes(model.cfg)
+    sd = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    shapes = _flax_param_shapes(cfg)
     tree: dict = {"tok_embed": {"embedding": sd["tok_embed.weight"]},
                   "pos_embed": sd["pos_embed"],
                   "ln_out": {"scale": sd["ln_out.weight"],
                              "bias": sd["ln_out.bias"]}}
-    for i in range(model.cfg.depth):
+    for i in range(cfg.depth):
         pre, b = f"blocks.{i}", {}
         for n in ("ln1", "ln2"):
             b[n] = {"scale": sd[f"{pre}.{n}.weight"], "bias": sd[f"{pre}.{n}.bias"]}
@@ -235,18 +245,39 @@ def _flax_tree_from_state(model) -> dict:
     return tree
 
 
+def _sorted_leaves(cfg, sd) -> List[np.ndarray]:
+    """A state-dict-shaped mapping as flax's flattened leaves (f32)."""
+    tree = _flax_tree_from_state(cfg, sd)
+    out = []
+    for p, _ in _flatten_sorted(_flax_param_shapes(cfg)):
+        leaf = tree
+        for k in p:
+            leaf = leaf[k]
+        out.append(np.ascontiguousarray(leaf, np.float32))
+    return out
+
+
+def _tree_from_leaves(cfg, leaves, what: str) -> dict:
+    """Flattened leaves back into the flax param tree, shapes checked."""
+    tree: dict = {}
+    for arr, (p, shape) in zip(leaves, _flatten_sorted(_flax_param_shapes(cfg))):
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{what} leaf {'/'.join(p)} has shape "
+                             f"{arr.shape}, expected {shape}")
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = arr
+    return tree
+
+
 def save_dense_model(path: str, dense) -> None:
     """Save a ``tdr_torch.models.dense.DenseModel`` (encoder weights, flat
     index, docids)."""
     os.makedirs(path, exist_ok=True)
-    tree = _flax_tree_from_state(dense.model)
-    arrays, dtypes = {}, {}
-    for i, (p, _) in enumerate(_flatten_sorted(_flax_param_shapes(dense.cfg))):
-        leaf = tree
-        for k in p:
-            leaf = leaf[k]
-        arrays[f"p{i}"] = np.ascontiguousarray(leaf, np.float32)
-        dtypes[f"p{i}"] = "float32"
+    leaves = _sorted_leaves(dense.cfg, dense.model.state_dict())
+    arrays = {f"p{i}": leaf for i, leaf in enumerate(leaves)}
+    dtypes = {k: "float32" for k in arrays}
     np.savez(os.path.join(path, "params.npz"), **arrays)
     emb, emb_dt = _to_numpy_savable(dense.flat.embeddings)
     idx_arrays = {"embeddings": emb}
@@ -284,23 +315,13 @@ def load_dense_model(path: str, device: DeviceLike = None):
     dev = resolve_device(device)
     cfg = DenseConfig(**meta["cfg"])
     data = np.load(os.path.join(path, "params.npz"))
-    leaves = _flatten_sorted(_flax_param_shapes(cfg))
-    if meta["n_leaves"] != len(leaves):
+    n = len(_flatten_sorted(_flax_param_shapes(cfg)))
+    if meta["n_leaves"] != n:
         raise ValueError(f"dense checkpoint has {meta['n_leaves']} leaves, the "
-                         f"config's encoder {len(leaves)}")
-    tree: dict = {}
-    for i, (p, shape) in enumerate(leaves):
-        arr = data[f"p{i}"]
-        if meta["dtypes"][f"p{i}"] == "bfloat16":
-            arr = torch.from_numpy(arr.view(np.int16).copy()).view(
-                torch.bfloat16).float().numpy()
-        if tuple(arr.shape) != tuple(shape):
-            raise ValueError(f"dense checkpoint leaf {'/'.join(p)} has shape "
-                             f"{arr.shape}, expected {shape}")
-        node = tree
-        for k in p[:-1]:
-            node = node.setdefault(k, {})
-        node[p[-1]] = arr
+                         f"config's encoder {n}")
+    tree = _tree_from_leaves(cfg, [
+        _f32_from_saved(data[f"p{i}"], meta["dtypes"][f"p{i}"])
+        for i in range(n)], "dense checkpoint")
     model = DualEncoder(cfg)
     model.load_state_dict(encoder_state_from_flax(tree))
     model = model.to(dev).eval()
@@ -310,6 +331,64 @@ def load_dense_model(path: str, device: DeviceLike = None):
     with open(os.path.join(path, "docids.txt")) as f:
         docids = f.read().splitlines()
     return DenseModel(model=model, cfg=cfg, docids=docids, flat=flat)
+
+
+# --------------------------------------------------------------------------
+# training state (params + AdamW moments + step) for resume
+# --------------------------------------------------------------------------
+
+def save_train_state(path: str, state) -> None:
+    """Checkpoint a ``tdr_torch.train.TrainState`` in ``tdr``'s layout: the
+    leaves of jax's flattened ``TrainState(params, opt_state, step)`` as
+    ``l{i}`` in ``train_state.npz`` — the params (flax's sorted-key order),
+    optax's ``count``, the ``mu`` leaves, the ``nu`` leaves, the step — so
+    that either package resumes from the other's file."""
+    from tdr_torch.train.contrastive import adam_moments
+
+    os.makedirs(path, exist_ok=True)
+    cfg = state.model.cfg
+    count, mu, nu = adam_moments(state)
+    flat = (_sorted_leaves(cfg, state.model.state_dict())
+            + [np.asarray(count, np.int32)] + _sorted_leaves(cfg, mu)
+            + _sorted_leaves(cfg, nu) + [np.asarray(state.step, np.int32)])
+    arrays = {f"l{i}": leaf for i, leaf in enumerate(flat)}
+    np.savez(os.path.join(path, "train_state.npz"), **arrays)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"format_version": FORMAT_VERSION, "n_leaves": len(flat),
+                   "dtypes": {k: str(v.dtype) for k, v in arrays.items()}}, f)
+
+
+def load_train_state(path: str, template):
+    """Restore into ``template`` (a fresh ``TrainState`` from
+    ``create_train_state`` with the same config; its learning rate and
+    weight decay are kept) and return it."""
+    from tdr_torch.models.encoder import encoder_state_from_flax
+    from tdr_torch.train.contrastive import load_adam_moments
+
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    _check_version(meta)
+    cfg = template.model.cfg
+    n = len(_flatten_sorted(_flax_param_shapes(cfg)))
+    if meta["n_leaves"] != 3 * n + 2:
+        raise ValueError(
+            f"train state has {meta['n_leaves']} leaves, template has "
+            f"{3 * n + 2} — config mismatch")
+    data = np.load(os.path.join(path, "train_state.npz"))
+    leaf = [data[f"l{i}"] for i in range(meta["n_leaves"])]
+
+    def state_dict(lo: int, what: str):
+        f32 = [_f32_from_saved(a, meta["dtypes"][f"l{lo + i}"])
+               for i, a in enumerate(leaf[lo:lo + n])]
+        return encoder_state_from_flax(_tree_from_leaves(cfg, f32, what))
+
+    with torch.no_grad():
+        template.model.load_state_dict(state_dict(0, "train state param"))
+    load_adam_moments(template.optimizer, template.model, int(leaf[n]),
+                      state_dict(n + 1, "train state mu"),
+                      state_dict(2 * n + 1, "train state nu"))
+    template.step = int(leaf[3 * n + 1])
+    return template
 
 
 # --------------------------------------------------------------------------
