@@ -112,6 +112,29 @@ Phases, in order (any failure exits non-zero and prints no result line):
    card against CPU from one start matrix (signs pinned), the logistic
    ranker and the unigram LM card against CPU.
 
+12. the parallel serving layer (``tdr_torch.parallel``), run after phase 8
+   while phase 2's models, phase 7's dense index and 8e's cascade are on
+   the card, over ``make_mesh(data=4)`` of ``cuda:(i % device_count)`` (4
+   shards share one card, or spread over several): (a) the seven
+   languages as ``ShardedBM25Model``s (S = 4) from phase 2's index arrays
+   (the COO read back from each CSR), vocab and head size, in one
+   ``LanguageRouter(query_batch=256)``: one counted pass, median of 5
+   after a warm pass, recall@10 held to 0.7650 and lists to phase 4-5's
+   router but near-ties (K1 on every tail-bearing shard); (b)
+   ``grid_score_topk`` on en over 2 x 2 and ``dp_score_topk`` on es split
+   4 ways against the single-device ``score_and_topk`` (one 256-query
+   batch); (c) vocab TP: en's full-vocab head slot-sharded 4 ways, es as
+   the hybrid (K1) on its bf16 and an int8 head and a batch over the tail
+   budget (``exact_tail``), each against the single-device fused engine,
+   ``per_device_bytes`` equal to ``vocab_shard_layout``'s; (d) phase 7's
+   dense index over 4 shards against ``flat_search`` (K3) on the 2000
+   encoded queries, l2 bf16 and int8 ip at the bench shape, and
+   ``sharded_flat_search_prf`` against ``flat_search_prf``; (e)
+   ``PipelinedCascade`` on 8e's models (stage 1 on mesh device 0, stage 2
+   on mesh device 1): lists equal ``CascadeRetriever``'s, recall@10 0.774;
+   (f) ``save_sharded_index`` / ``load_sharded_index`` of (a)'s en index,
+   the loaded lists and scores equal.
+
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
 K3, K3 f32, K4); the last line is
@@ -1330,7 +1353,7 @@ def cascade_phase(reps, n_docs=207_363, n_queries=1000):
         f"{len(res)} queries -> {len(res) / med:.1f} queries/s, recall@10 "
         f"{recall:.4f}; launches in one pass {counts}")
     check_recall("cascade", recall, 0.774)
-    return counts
+    return counts, (cas, queries, res)
 
 
 def bert_token_flops(cfg, seq_len: int) -> float:
@@ -2115,6 +2138,378 @@ def profile_pass(label, run, trace_out=None) -> None:
         prof.export_chrome_trace(trace_out)
 
 
+# -- phase 12: the parallel serving layer ------------------------------------
+
+def coo_from_index(index):
+    """The COO (doc_ids, term_ids, tfs, doc_lens) a ``SparseIndex`` was built
+    from, read back from its CSR: term-major, docs ascending within a term,
+    which is the order the build's stable sort by term gives anyway.  Doc
+    lengths come back as f64 so that their sum (avgdl) is the build's."""
+    import torch
+
+    nnz = int(index.indptr[-1].item())
+    lens = (index.indptr[1:] - index.indptr[:-1]).long()
+    terms = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=lens.device, dtype=torch.int32),
+        lens)
+    return (index.postings_doc[:nnz].cpu().numpy(), terms.cpu().numpy(),
+            index.postings_tf[:nnz].cpu().numpy(),
+            index.stats.doc_len[:index.n_docs].double().cpu().numpy())
+
+
+def hold_lists(label, vals, docs, ref_vals, ref_docs, rtol, atol):
+    """Scores within (rtol, atol) of the reference's, where both are
+    finite, and lists equal but for near-ties (``same_ranking``).  Returns
+    the rank slots that differ."""
+    import numpy as np
+
+    vals, ref_vals = np.asarray(vals), np.asarray(ref_vals)
+    fin = np.isfinite(ref_vals)
+    need(np.array_equal(np.isfinite(vals), fin),
+         f"{label}: finite entries differ from the reference")
+    if not np.allclose(vals[fin], ref_vals[fin], rtol=rtol, atol=atol):
+        err = float(np.max(np.abs(vals[fin] - ref_vals[fin])))
+        fail(f"{label}: scores differ from the reference by {err:.3g} "
+             f"(rtol {rtol}, atol {atol})")
+    bad = [q for q in range(len(docs)) if not same_ranking(
+        list(docs[q]), vals[q], list(ref_docs[q]), ref_vals[q])]
+    need(not bad, f"{label}: lists differ beyond near-ties at queries "
+                  f"{bad[:10]}")
+    return int((np.asarray(docs) != np.asarray(ref_docs)).sum())
+
+
+def parallel_doc_phase(models, queries, full_docs, full_scores, mesh, reps):
+    """12a: the seven languages as doc-sharded ``ShardedBM25Model``s (S = 4)
+    in one ``LanguageRouter`` over all queries; recall and lists against
+    phase 4-5's router.  Returns (the sharded models, launch counts)."""
+    import torch
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.parallel.sharded import ShardedBM25Model
+    from tdr_torch.rank import LanguageRouter
+
+    t0 = time.perf_counter()
+    sharded = {}
+    for lang, m in sorted(models.items()):
+        sharded[lang] = ShardedBM25Model.from_coo(
+            m.vocab, coo_from_index(m.index), m.docids, mesh, lang=lang,
+            head_size=m.index.head_size)
+        sx = sharded[lang].sindex
+        need(torch.equal(sx.head_slot, m.index.head_slot),
+             f"12a {lang}: the sharded head/tail split differs from the "
+             f"single-device index's")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for lang, sm in sorted(sharded.items()):
+        sx = sm.sindex
+        head = sx.shards[0].head_rows
+        say(f"  [12a {lang}] {sx.n_shards} shards of "
+            f"{sx.n_valid.tolist()} docs (pad {sx.n_docs_pad_local}); head "
+            f"{tuple(head.shape)} {head.dtype} "
+            f"({head.numel() * head.element_size() / 2**30:.3f} GiB a shard); "
+            f"tail_pmax {sx.tail_pmax}")
+    router = LanguageRouter(sharded, query_batch=256)
+    run = lambda: router.retrieve_with_scores(  # noqa: E731
+        queries.queries, queries.langs, k=10)
+    run()
+    (docs, scores), counts = counted(run)
+    need(counts["tail_compact"] > 0, f"12a: K1 never ran {counts}")
+    med, times = timed(lambda: router.retrieve(queries.queries, queries.langs,
+                                               k=10), reps)
+    recall = recall_at_k(docs, queries.positive_docs, 10)
+    bad = lists_match(docs, scores, full_docs, full_scores)
+    need(not bad, f"12a: lists differ from phase 4's router at queries "
+                  f"{bad[:10]}")
+    n = len(queries.queries)
+    say(f"[12a doc-sharded] build {build_s:.1f} s; {n} queries: median "
+        f"{med:.4f} s of {[round(t, 4) for t in times]} -> {n / med:.1f} "
+        f"queries/s; recall@10 {recall:.4f}; launches in one pass {counts}; "
+        f"lists == phase 4's router but near-ties")
+    check_recall("12a", recall, 0.7650)
+    return sharded, counts
+
+
+def parallel_grid_dp_phase(models, batch, devices):
+    """12b: ``grid_score_topk`` (en, 2 x 2) and ``dp_score_topk`` (es, 4
+    ways) against the single-device ``score_and_topk`` on a 256-query
+    batch.  Returns the grid's launch counts."""
+    import numpy as np
+    import torch
+    from tdr_torch.ops.score import score_and_topk
+    from tdr_torch.parallel import (build_sharded_index, dp_score_topk,
+                                    grid_score_topk, make_mesh)
+    from tdr_torch.parallel.sharded import global_row_to_doc
+
+    grid = make_mesh(data=2, model=2, devices=devices)
+    m = models["en"]
+    sx = build_sharded_index(*coo_from_index(m.index), m.vocab.size,
+                             n_shards=2, head_size=m.index.head_size,
+                             devices=grid.axis_devices("model"))
+    qids, qw = batch("en", 256)
+    (gv, gr), counts = counted(lambda: grid_score_topk(grid, sx, qids, qw, 10))
+    gms = time_ms(lambda: grid_score_topk(grid, sx, qids, qw, 10), 5, 1)
+    rv, rr = score_and_topk(m.index, qids, qw, 10)
+    swaps = hold_lists("12b grid", gv.cpu().numpy(),
+                       global_row_to_doc(sx, gr).cpu().numpy(),
+                       rv.cpu().numpy(), rr.cpu().numpy(), 1e-4, 1e-5)
+    say(f"[12b grid] en over 2 x 2 (2 shards of {sx.n_valid.tolist()} docs, "
+        f"pad {sx.n_docs_pad_local}), Q=256: {gms:.3f} ms a batch; == "
+        f"single-device score_and_topk ({swaps} rank slots inside "
+        f"near-ties); launches {counts}")
+    del sx
+
+    dp = make_mesh(data=4, devices=devices)
+    es = models["es"].index
+    qids, qw = batch("es", 256)
+    dv, dr = dp_score_topk(dp, es, qids, qw, 10)
+    dms = time_ms(lambda: dp_score_topk(dp, es, qids, qw, 10), 5, 1)
+    rv, rr = score_and_topk(es, qids, qw, 10)
+    swaps = hold_lists("12b dp", dv.cpu().numpy(), dr.cpu().numpy(),
+                       rv.cpu().numpy(), rr.cpu().numpy(), 1e-5, 1e-6)
+    say(f"[12b dp] es Q=256 split 4 ways: {dms:.3f} ms a batch; == "
+        f"single-device score_and_topk ({swaps} rank slots inside near-ties)")
+    return counts
+
+
+def parallel_vocab_tp_phase(models, queries, batch, devices):
+    """12c: en's full-vocab head slot-sharded 4 ways (pure TP); es as the
+    hybrid (sharded head + replicated tail, K1), on its bf16 and on an int8
+    head, and one batch over the tail budget (``exact_tail``); each against
+    the single-device fused engine on the same batches.  Returns the
+    hybrid pass's launch counts."""
+    import torch
+    from tdr_torch.index.build import quantize_head
+    from tdr_torch.ops.score import score_and_topk_fused
+    from tdr_torch.parallel import make_mesh
+    from tdr_torch.parallel.vocab_tp import (vocab_shard_index,
+                                             vocab_shard_layout,
+                                             vocab_tp_score_topk)
+
+    tp = make_mesh(data=1, model=4, devices=devices)
+
+    def batches(lang):
+        n = sum(1 for l in queries.langs if l == lang)
+        return [batch(lang, min(256, n - s), s) for s in range(0, n, 256)]
+
+    def check(label, vix, index, bs, tol, single=None):
+        run = lambda: [vocab_tp_score_topk(tp, vix, q, w, 10)  # noqa: E731
+                       for q, w in bs]
+        got, counts = counted(run)
+        ms = time_ms(run, 3, 1) / len(bs)
+        swaps = 0
+        for (q, w), (tv, tr) in zip(bs, got):
+            rv, rr = (single(q, w) if single else score_and_topk_fused(
+                index, q, w, top_k=10))
+            swaps += hold_lists(f"12c {label}", tv.cpu().numpy(),
+                                tr.cpu().numpy(), rv.cpu().numpy(),
+                                rr.cpu().numpy(), tol, tol)
+        lay, mat = vocab_shard_layout(index, 4), vix.per_device_bytes()
+        need(all(lay[k] == mat[k] for k in mat),
+             f"12c {label}: per_device_bytes {mat} != layout {lay}")
+        say(f"[12c {label}] {len(bs)} batches of {bs[0][0].shape[0]}: "
+            f"{ms:.3f} ms a batch; == single-device fused engine ({swaps} "
+            f"rank slots inside near-ties); launches {counts}; "
+            f"per_device_bytes {mat}; vocab_shard_layout {lay}")
+        return counts
+
+    en = models["en"]
+    need(en.index.head_size >= en.index.vocab_size,
+         "12c: en's head is not full-vocab")
+    check("en pure TP", vocab_shard_index(en.index, 4, devices), en.index,
+          batches("en"), 1e-5, en.topk_encoded_async)
+    es = models["es"]
+    es_b = batches("es")
+    counts = check("es hybrid", vocab_shard_index(es.index, 4, devices),
+                   es.index, es_b, 1e-5, es.topk_encoded_async)
+    need(counts["tail_compact"] > 0, f"12c: K1 never ran {counts}")
+    es8 = quantize_head(es.index)
+    check("es hybrid int8", vocab_shard_index(es8, 4, devices), es8, es_b,
+          1e-4)
+    del es8
+    # row 0: 20 tail terms, over the compaction's 16
+    ix = es.index
+    tail = torch.nonzero((ix.head_slot < 0) & (ix.stats.df > 0))[:20, 0]
+    qids, qw = (t.clone() for t in es_b[0])
+    qids[0], qw[0] = 0, 0.0
+    qids[0, :20], qw[0, :20] = tail.to(qids.dtype), 1.0
+    check("es hybrid overflow batch (exact_tail)",
+          vocab_shard_index(ix, 4, devices), ix, [(qids, qw)], 1e-5,
+          es.topk_encoded_async)
+    return counts
+
+
+def parallel_dense_phase(flat, q_enc, bench_emb, bench_q, devices, reps):
+    """12d: phase 7's dense index over 4 shards against ``flat_search`` (K3)
+    on the 2000 encoded queries; l2 and int8 at the bench shape; Rocchio
+    feedback against ``flat_search_prf``.  Returns the search's counts."""
+    import numpy as np
+    import torch
+    from tdr_torch.models.dense import flat_search, flat_search_prf
+    from tdr_torch.parallel import (build_sharded_flat_index, make_mesh,
+                                    sharded_flat_search,
+                                    sharded_flat_search_prf,
+                                    sharded_row_to_doc)
+
+    mesh = make_mesh(data=4, devices=devices)
+    sf = build_sharded_flat_index(flat.embeddings[:flat.n_docs], 4,
+                                  devices=devices)
+    (sv, sr), counts = counted(lambda: sharded_flat_search(mesh, sf, q_enc, 10))
+    med, times = timed(lambda: sharded_flat_search(mesh, sf, q_enc, 10), reps)
+    rv, rr = flat_search(flat, q_enc, 10)
+    swaps = hold_lists("12d ip bf16", sv.cpu().numpy(),
+                       sharded_row_to_doc(sf, sr).cpu().numpy(),
+                       rv.cpu().numpy(), rr.cpu().numpy(), 1e-5, 1e-6)
+    n = q_enc.shape[0]
+    say(f"[12d dense] {flat.n_docs} x {flat.embeddings.shape[1]} bf16 over 4 "
+        f"shards of {sf.n_valid.tolist()} rows (pad {sf.n_loc_pad}): {n} "
+        f"queries, search median {med * 1e3:.3f} ms of "
+        f"{[round(t * 1e3, 3) for t in times]} -> {n / med:.1f} queries/s "
+        f"(flat_search, K3, in this process: "
+        f"{time_ms(lambda: flat_search(flat, q_enc, 10), reps, 1):.3f} ms); "
+        f"== flat_search ({swaps} rank slots inside near-ties); launches "
+        f"{counts}")
+    del sf
+
+    bq = torch.as_tensor(bench_q, device=DEVICE)
+    for metric, dtype, tol in (("l2", "bfloat16", (1e-4, 1e-4)),
+                               ("ip", "int8", (1e-5, 1e-6))):
+        sf = build_sharded_flat_index(bench_emb, 4, metric=metric,
+                                      dtype=dtype, devices=devices)
+        one = flat_index_on_card(bench_emb, metric, dtype)
+        sv, sr = sharded_flat_search(mesh, sf, bq, 10)
+        rv, rr = flat_search(one, bq, 10)
+        ms = time_ms(lambda: sharded_flat_search(mesh, sf, bq, 10), 5, 1)
+        swaps = hold_lists(f"12d {metric} {dtype}", sv.cpu().numpy(),
+                           sharded_row_to_doc(sf, sr).cpu().numpy(),
+                           rv.cpu().numpy(), rr.cpu().numpy(), *tol)
+        say(f"[12d dense {metric} {dtype}] {bench_emb.shape[0]} x "
+            f"{bench_emb.shape[1]}, Q={bq.shape[0]}: {ms:.3f} ms; "
+            f"== flat_search ({swaps} rank slots inside near-ties)")
+        del sf, one
+
+    # feedback: a query whose first-pass F docs differ inside a near-tie
+    # pulls toward another centroid; such queries are shown to be near-ties
+    # at the first pass and left out of the second
+    sf = build_sharded_flat_index(bench_emb, 4, devices=devices)
+    one = flat_index_on_card(bench_emb, "ip", "bfloat16")
+    F = 5
+    fv, fr = sharded_flat_search(mesh, sf, bq, F)
+    f1v, f1r = flat_search(one, bq, F)
+    fr = sharded_row_to_doc(sf, fr).cpu().numpy()
+    f1v, f1r, fv = f1v.cpu().numpy(), f1r.cpu().numpy(), fv.cpu().numpy()
+    skip = [q for q in range(len(fr)) if set(fr[q]) != set(f1r[q])]
+    for q in skip:
+        need(same_ranking(list(fr[q]), fv[q], list(f1r[q]), f1v[q]),
+             f"12d prf: query {q}'s feedback docs differ beyond a near-tie")
+    sv, sr = sharded_flat_search_prf(mesh, sf, bq, 10, n_feedback=F, alpha=0.6)
+    rv, rr = flat_search_prf(one, bq, 10, n_feedback=F, alpha=0.6)
+    keep = [q for q in range(len(fr)) if q not in skip]
+    swaps = hold_lists("12d prf", sv.cpu().numpy()[keep],
+                       sharded_row_to_doc(sf, sr).cpu().numpy()[keep],
+                       rv.cpu().numpy()[keep], rr.cpu().numpy()[keep],
+                       1e-4, 1e-5)
+    say(f"[12d dense prf] F={F} alpha 0.6, Q=256: == flat_search_prf on "
+        f"{len(keep)} queries ({swaps} rank slots inside near-ties; "
+        f"{len(skip)} left out: their feedback sets differ inside near-ties)")
+    return counts
+
+
+def parallel_pipeline_phase(cascade, devices, reps):
+    """12e: ``PipelinedCascade`` with stage 1 on mesh device 0 and stage 2
+    on mesh device 1, on 8e's cascade: lists equal ``CascadeRetriever``'s,
+    recall@10 the JAX 0.774.  Returns the pass's launch counts."""
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.parallel import PipelinedCascade
+
+    cas, queries, want = cascade
+    cand, rank = cas.candidate_models["en"], cas.rerank_models["en"]
+    pipe = PipelinedCascade(cand, rank, stage1_device=devices[0],
+                            stage2_device=devices[1], candidates=200,
+                            query_batch=256)
+    run = lambda: pipe.retrieve(queries.queries, "en", k=10)  # noqa: E731
+    run()
+    got, counts = counted(run)
+    need(counts["tail_compact"] > 0, f"12e: K1 never ran {counts}")
+    need(got == want, "12e: the pipelined lists differ from CascadeRetriever's")
+    med, times = timed(run, reps)
+    recall = recall_at_k(got, queries.positive_docs, 10)
+    say(f"[12e pipelined cascade] stages on {devices[0]} / {devices[1]}, "
+        f"candidates 200, batch 256: median {med:.4f} s of "
+        f"{[round(t, 4) for t in times]} for {len(got)} queries -> "
+        f"{len(got) / med:.1f} queries/s; recall@10 {recall:.4f}; launches "
+        f"{counts}; lists == CascadeRetriever's")
+    check_recall("12e", recall, 0.774)
+    return counts
+
+
+def parallel_ckpt_phase(model, queries, mesh):
+    """12f: ``save_sharded_index`` / ``load_sharded_index`` of 12a's en
+    index; the loaded model's lists and scores equal the built one's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from tdr_torch.ckpt import load_sharded_index, save_sharded_index
+    from tdr_torch.rank import LanguageRouter
+
+    tmp = tempfile.mkdtemp(prefix="tdr_sharded_")
+    try:
+        t0 = time.perf_counter()
+        save_sharded_index(tmp, model.sindex)
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                      for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        loaded = load_sharded_index(tmp, mesh)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sel = [i for i, l in enumerate(queries.langs) if l == model.lang]
+    qs, langs = [queries.queries[i] for i in sel], [model.lang] * len(sel)
+    a_docs, a_scores = LanguageRouter({model.lang: model}, query_batch=256) \
+        .retrieve_with_scores(qs, langs, k=10)
+    b_docs, b_scores = LanguageRouter(
+        {model.lang: dataclasses.replace(model, sindex=loaded)},
+        query_batch=256).retrieve_with_scores(qs, langs, k=10)
+    need(a_docs == b_docs and np.array_equal(a_scores, b_scores),
+         "12f: the loaded sharded index's top-10 differs from the built one's")
+    say(f"[12f sharded checkpoint] {model.lang}, {model.sindex.n_shards} "
+        f"shards: {n_bytes / 1e9:.3f} GB written in {t_save:.2f} s, loaded "
+        f"in {t_load:.2f} s; {len(sel)} queries' lists and scores equal")
+
+
+def parallel_phase(models, queries, full_docs, full_scores, batch, flat,
+                   q_enc, bench_emb, bench_q, cascade, card, reps):
+    """Phase 12 (after phase 8, while phase 2's models, phase 7's dense
+    index and 8e's cascade are on the card).  Returns launch counts by
+    path."""
+    import torch
+    from tdr_torch.parallel import make_mesh
+
+    t12 = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices = [f"{DEVICE}:{i % count}" for i in range(4)]
+    mesh = make_mesh(data=4, devices=devices)
+    say(f"[12] mesh data=4 over {devices} ({count} CUDA device(s); a "
+        f"repeated device runs its shards in sequence, and a copy to it is "
+        f"no copy) on {card}")
+    paths = {}
+    sharded, paths["parallel_doc"] = parallel_doc_phase(
+        models, queries, full_docs, full_scores, mesh, reps)
+    paths["parallel_grid"] = parallel_grid_dp_phase(models, batch, devices)
+    paths["parallel_vocab_tp"] = parallel_vocab_tp_phase(models, queries,
+                                                         batch, devices)
+    paths["parallel_dense"] = parallel_dense_phase(flat, q_enc, bench_emb,
+                                                   bench_q, devices, reps)
+    paths["parallel_pipeline"] = parallel_pipeline_phase(cascade, devices,
+                                                         reps)
+    parallel_ckpt_phase(sharded["en"], queries, mesh)
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 12: {time.perf_counter() - t12:.1f} s on {card}")
+    return paths
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=2000)
@@ -2339,11 +2734,18 @@ def main() -> None:
     for key, c in segmented_phase(models, queries, args.reps).items():
         paths[f"segmented_{key}"] = c
     paths["candidates"] = candidates_phase(models, queries)
-    paths["cascade"] = cascade_phase(3)
+    paths["cascade"], cascade = cascade_phase(3)
     checkpoint_phase(models, queries)
+    say(f"phase 8: {time.perf_counter() - t8:.1f} s")
+
+    # -- phase 12: the parallel serving layer (run here, while phase 2's
+    # models, phase 7's dense index and 8e's cascade are on the card) ------
+    paths.update(parallel_phase(models, queries, full_docs, full_scores,
+                                batch, flat, q_enc, bench_emb, bench_q,
+                                cascade, card, args.reps))
+    del cascade
     for rec in (rec_k1, rec_k2):
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
-    say(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     # -- phase 9a: the sparse pass at f32 heads ------------------------------
     t9 = time.perf_counter()
@@ -2388,7 +2790,8 @@ def main() -> None:
         train_paths["train_sentence_cascade"]["tail_compact"]
     rec_k3["launches_by_path"] = {
         "dense": rec_k3["launches"],
-        "train_dense_eval": train_paths["train_dense_eval"]["fused_flat"]}
+        "train_dense_eval": train_paths["train_dense_eval"]["fused_flat"],
+        "parallel_dense": paths["parallel_dense"]["fused_flat"]}
     say(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

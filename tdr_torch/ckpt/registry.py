@@ -14,7 +14,8 @@ as its uint16 bits with the dtype string beside it, an int8 head carries
 order of the encoder's param tree (the keys sorted at every level).
 A training state (``save_train_state``) stores jax's flattened
 ``TrainState`` leaves, so either package resumes from the other's file.
-Sharded indexes wait for the parallel slice.
+A sharded index (``save_sharded_index``) keeps ``tdr``'s directory:
+``shared.npz``, ``shard_NNNN.npz`` per shard and ``manifest.json``.
 """
 
 from __future__ import annotations
@@ -331,6 +332,96 @@ def load_dense_model(path: str, device: DeviceLike = None):
     with open(os.path.join(path, "docids.txt")) as f:
         docids = f.read().splitlines()
     return DenseModel(model=model, cfg=cfg, docids=docids, flat=flat)
+
+
+# --------------------------------------------------------------------------
+# sharded index (one arrays file per shard + shared arrays + manifest)
+# --------------------------------------------------------------------------
+
+_SHARDED_STACKED = ("indptr", "postings_doc", "postings_w", "postings_tf",
+                    "head_rows", "df_local", "doc_len")
+_SHARDED_SHARED = ("head_slot", "idf", "avgdl", "n_valid")
+_SHARDED_STATICS = ("n_shards", "n_docs", "n_docs_pad_local", "vocab_size",
+                    "tail_pmax", "head_size")
+
+
+def save_sharded_index(path: str, sindex) -> None:
+    """``shared.npz`` (head_slot, idf, avgdl, n_valid), one
+    ``shard_NNNN.npz`` per shard (its fields of ``tdr``'s stacked layout)
+    and ``manifest.json``: the directory ``tdr``'s ``save_sharded_index``
+    writes."""
+    os.makedirs(path, exist_ok=True)
+    dtypes: Dict[str, str] = {}
+    shared: Dict[str, np.ndarray] = {}
+    for name in _SHARDED_SHARED:
+        shared[name], dtypes[name] = _to_numpy_savable(getattr(sindex, name))
+    np.savez(os.path.join(path, "shared.npz"), **shared)
+    int8 = sindex.shards[0].head_scale is not None
+    stacked = list(_SHARDED_STACKED) + (["head_scale"] if int8 else [])
+    for s in range(sindex.n_shards):
+        arrays: Dict[str, np.ndarray] = {}
+        for name in stacked:
+            arrays[name], dtypes[name] = _to_numpy_savable(
+                sindex.shard_field(name, s))
+        np.savez(os.path.join(path, f"shard_{s:04d}.npz"), **arrays)
+    meta = {
+        "format_version": 2 if int8 else 1,
+        "statics": {k: int(getattr(sindex, k)) for k in _SHARDED_STATICS},
+        "dtypes": dtypes,
+    }
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_sharded_index(path: str, mesh=None, device: DeviceLike = None):
+    """A ``ShardedSparseIndex`` from a directory either package wrote, shard
+    s on the mesh's data device s (without a mesh, every shard on
+    ``device``, by the ``resolve_device`` rule)."""
+    from tdr_torch.index.build import IndexStats, SparseIndex, _tensor_from_saved
+    from tdr_torch.parallel.sharded import ShardedSparseIndex
+
+    with open(os.path.join(path, "manifest.json")) as f:
+        meta = json.load(f)
+    _check_version(meta)
+    dtypes = meta["dtypes"]
+    statics = {k: int(meta["statics"][k]) for k in _SHARDED_STATICS}
+    S = statics["n_shards"]
+    if mesh is not None:
+        devs = mesh.axis_devices("data")
+        if len(devs) != S:
+            raise ValueError(f"{S} shards on a data axis of {len(devs)}")
+    else:
+        devs = [resolve_device(device)] * S
+    # read whole before the threads start: one NpzFile is one zip handle,
+    # which concurrent reads corrupt
+    with np.load(os.path.join(path, "shared.npz")) as data:
+        shared_np = {k: data[k] for k in data.files}
+    n_valid = torch.from_numpy(np.asarray(shared_np["n_valid"], np.int32))
+    stacked = list(_SHARDED_STACKED) + (
+        ["head_scale"] if "head_scale" in dtypes else [])
+
+    def _load_shard(s):
+        dev = devs[s]
+        with np.load(os.path.join(path, f"shard_{s:04d}.npz")) as data:
+            a = {name: _tensor_from_saved(data[name], dtypes[name], dev)
+                 for name in stacked}
+        sh = {name: _tensor_from_saved(shared_np[name], dtypes[name], dev)
+              for name in ("head_slot", "idf", "avgdl")}
+        return SparseIndex(
+            indptr=a["indptr"], postings_doc=a["postings_doc"],
+            postings_w=a["postings_w"], postings_tf=a["postings_tf"],
+            head_slot=sh["head_slot"], head_rows=a["head_rows"],
+            stats=IndexStats(df=a["df_local"], idf=sh["idf"],
+                             doc_len=a["doc_len"], avgdl=sh["avgdl"]),
+            head_scale=a.get("head_scale"), n_docs=int(n_valid[s]),
+            n_docs_pad=statics["n_docs_pad_local"],
+            vocab_size=statics["vocab_size"], tail_pmax=statics["tail_pmax"],
+            head_size=statics["head_size"])
+
+    # shard loads are I/O bound: a thread each
+    with ThreadPoolExecutor(max_workers=min(8, S)) as ex:
+        shards = list(ex.map(_load_shard, range(S)))
+    return ShardedSparseIndex(shards=shards, n_valid=n_valid, **statics)
 
 
 # --------------------------------------------------------------------------

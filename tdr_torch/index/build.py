@@ -270,13 +270,20 @@ def build_index(
     device: DeviceLike = None,
     idf: Optional[np.ndarray] = None,
     avgdl: Optional[float] = None,
+    head_slot: Optional[np.ndarray] = None,
+    n_docs_pad: Optional[int] = None,
+    nnz_pad: Optional[int] = None,
+    tail_pmax: Optional[int] = None,
 ) -> SparseIndex:
     """Pad the COO to static shapes, run the build on ``device`` and derive
-    the static tail width (``tdr.index.build.build_index``'s contract for
-    one unsharded partition).  ``idf`` and ``avgdl`` override the local
-    statistics with corpus-global ones (the segment store's delta); an
-    injected ``idf`` fixes the vocab axis at its length, as in ``tdr``.
-    The sharded build's other overrides come with the parallel layer.
+    the static tail width (``tdr.index.build.build_index``'s contract).
+
+    The overrides replace local statistics and shapes with corpus-global
+    ones: ``idf`` and ``avgdl`` (the segment store's delta; an injected
+    ``idf`` fixes the vocab axis at its length), and for a document shard
+    also ``head_slot`` (with ``head_size``), ``tail_pmax`` and the shared
+    padded shapes ``n_docs_pad`` and ``nnz_pad``, so that a shard scores
+    its documents as the single-device index does.
 
     Without ``df_host`` the document frequencies are counted from the COO
     on the host (one entry per unique (doc, term) pair, so the count is the
@@ -285,12 +292,15 @@ def build_index(
     dev = resolve_device(device)
     n_docs = int(doc_lens.shape[0])
     bucketing = index_cfg.shape_bucketing
-    n_docs_pad = _pad_docs(n_docs, index_cfg)
+    if n_docs_pad is None:
+        n_docs_pad = _pad_docs(n_docs, index_cfg)
     nnz = int(doc_ids.shape[0])
-    nnz_pad = max(_round_up(max(nnz, 1), index_cfg.nnz_pad_multiple),
-                  index_cfg.nnz_pad_multiple)
-    if bucketing:
-        nnz_pad = _bucket(nnz_pad, index_cfg.nnz_pad_multiple)
+    nnz_pad_injected = nnz_pad
+    if nnz_pad is None:
+        nnz_pad = max(_round_up(max(nnz, 1), index_cfg.nnz_pad_multiple),
+                      index_cfg.nnz_pad_multiple)
+        if bucketing:
+            nnz_pad = _bucket(nnz_pad, index_cfg.nnz_pad_multiple)
     vocab_pad = _bucket(max(vocab_size, 1), 128) if bucketing else vocab_size
 
     di, ti, tv = _pad_coo(doc_ids, term_ids, tfs, vocab_pad, nnz_pad)
@@ -299,26 +309,38 @@ def build_index(
     if idf is not None:
         vocab_pad = int(np.asarray(idf).shape[0])
 
-    df_g = np.zeros(vocab_pad, np.float32)
-    if df_host is not None:
-        df_g[:len(df_host)] = np.asarray(df_host, np.float32)
-    else:
-        df_g[:] = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
-    if idf is None:
-        idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
-    idf = np.asarray(idf, np.float32)
-    if head_size is None:
-        if index_cfg.head_min_df > 0:
-            head_size = int(np.sum(df_g >= index_cfg.head_min_df))
+    if idf is None or head_slot is None:
+        df_g = np.zeros(vocab_pad, np.float32)
+        if df_host is not None:
+            df_g[:len(df_host)] = np.asarray(df_host, np.float32)
         else:
-            head_size = _auto_head_size(vocab_pad, n_docs_pad, index_cfg)
-        if bucketing and 256 < head_size < vocab_pad:
-            head_size = (head_size // 256) * 256   # floor: stay in budget
-    head_size = min(head_size, vocab_pad)
-    head_slot = _select_head_np(df_g, head_size)
-    tail_df = df_g[head_slot < 0]
-    tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
-                                  bucketing)
+            df_g[:] = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
+        if idf is None:
+            idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
+        if head_slot is None:
+            if head_size is None:
+                if index_cfg.head_min_df > 0:
+                    head_size = int(np.sum(df_g >= index_cfg.head_min_df))
+                else:
+                    head_size = _auto_head_size(vocab_pad, n_docs_pad, index_cfg)
+                if bucketing and 256 < head_size < vocab_pad:
+                    head_size = (head_size // 256) * 256   # floor: stay in budget
+            head_size = min(head_size, vocab_pad)
+            head_slot = _select_head_np(df_g, head_size)
+        if tail_pmax is None:
+            tail_df = df_g[head_slot < 0]
+            tail_pmax = _bucket_tail_pmax(
+                int(tail_df.max()) if tail_df.size else 0, bucketing)
+    idf = np.asarray(idf, np.float32)
+    head_slot = np.asarray(head_slot, np.int32)
+    if head_size is None:
+        head_size = int(head_slot.max()) + 1 if vocab_pad else 0
+    if tail_pmax is None:
+        # injected statistics, no tail width: the widest LOCAL tail list
+        df_local = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
+        tail_df = df_local[:vocab_pad][head_slot < 0]
+        tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
+                                      bucketing)
     if avgdl is None:
         avgdl = float(doc_lens.sum() / max(n_docs, 1))
 
@@ -343,8 +365,10 @@ def build_index(
 
     # postings padding past nnz, kept so shapes equal the JAX build's (its
     # TPU tail kernel reads an aligned window past the segment end; the CUDA
-    # kernel reads exactly [start, start + len))
-    need = nnz + _round_up(tail_pmax + 1023, 1024)
+    # kernel reads exactly [start, start + len)); an injected ``nnz_pad``
+    # grows from itself, so that every shard gets one shape
+    dma_win = _round_up(tail_pmax + 1023, 1024)
+    need = (nnz_pad_injected if nnz_pad_injected is not None else nnz) + dma_win
     if int(postings_doc.shape[0]) < need:
         grow = (_bucket(need, index_cfg.nnz_pad_multiple) if bucketing
                 else _round_up(need, index_cfg.nnz_pad_multiple))

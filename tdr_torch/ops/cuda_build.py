@@ -9,6 +9,10 @@ TMA tensor maps are encoded through the runtime's driver entry point, so
 the link needs no ``-lcuda``.  Nothing here runs when the module is
 imported, so the CPU tests import every module without ``nvcc``.
 
+The library's kernels go to the CUDA runtime's current device, so each
+wrapper launches inside ``torch.cuda.device`` of its tensors' device (a
+mesh shard or a pipeline stage on another card).
+
 ``launches`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one where it launches its kernel and nowhere else.  The f32 bodies of
 K2 and K3 count under their own names (``fused_head_f32``,

@@ -137,21 +137,24 @@ def fused_flat_blockmax(q: torch.Tensor, emb: torch.Tensor,
     lib = cuda_build.lib()
     stream = cuda_build.current_stream(emb.device)
     name = "fused_flat"
-    if is_int8:
-        err = lib.tdr_fused_flat_int8(
-            q.data_ptr(), emb.data_ptr(), bias.data_ptr(), dscale.data_ptr(),
-            qscale.data_ptr(), out.data_ptr(), Qp, D, N, alpha, stream)
-    elif emb.dtype == torch.bfloat16:
-        err = lib.tdr_fused_flat_bf16(q.data_ptr(), emb.data_ptr(),
-                                      bias.data_ptr(), out.data_ptr(), Qp, D,
-                                      N, alpha, stream)
-    else:
+    if not is_int8 and emb.dtype != torch.bfloat16:
         # the B operand of the 3xTF32 products: big rows, then small rows
         qs = torch.cat(tf32_split(q))
-        err = lib.tdr_fused_flat_f32(qs.data_ptr(), emb.data_ptr(),
-                                     bias.data_ptr(), out.data_ptr(), Qp, D,
-                                     N, alpha, stream)
         name = "fused_flat_f32"
+    with torch.cuda.device(emb.device):   # launches on the current device
+        if is_int8:
+            err = lib.tdr_fused_flat_int8(
+                q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+                dscale.data_ptr(), qscale.data_ptr(), out.data_ptr(), Qp, D,
+                N, alpha, stream)
+        elif emb.dtype == torch.bfloat16:
+            err = lib.tdr_fused_flat_bf16(q.data_ptr(), emb.data_ptr(),
+                                          bias.data_ptr(), out.data_ptr(), Qp,
+                                          D, N, alpha, stream)
+        else:
+            err = lib.tdr_fused_flat_f32(qs.data_ptr(), emb.data_ptr(),
+                                         bias.data_ptr(), out.data_ptr(), Qp,
+                                         D, N, alpha, stream)
     cuda_build.check(err, name)
     cuda_build.launches[name] += 1
     return out

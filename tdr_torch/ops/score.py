@@ -47,29 +47,32 @@ def _pad_topk(vals, idx, top_k: int):
 def int8_head_matmul(W: torch.Tensor, rows8: torch.Tensor) -> torch.Tensor:
     """``W_f32 (Q, D) @ rows8_int8 (D, N)`` as an int8 x int8 → int32
     product with the query-side scale folded back out (the per-doc scale is
-    still missing; callers multiply by ``head_scale``)."""
+    still missing; callers multiply by ``head_scale``).  On the card
+    ``torch._int_mm`` wants more than 16 rows and a multiple of 8, so the
+    int8 queries pad to that."""
     wmax = W.amax(dim=1, keepdim=True)
     integral = (W == torch.round(W)).all(dim=1, keepdim=True) & (wmax <= 127.0)
     qscale = torch.where(integral, torch.ones_like(wmax),
                          wmax.clamp_min(1e-30) / 127.0)
     w8 = torch.round(W / qscale).to(torch.int8)
-    acc = torch._int_mm(w8, rows8)
+    Q = w8.shape[0]
+    if rows8.is_cuda:
+        w8 = torch.nn.functional.pad(w8, (0, 0, 0, max(32, -(-Q // 8) * 8) - Q))
+    acc = torch._int_mm(w8, rows8)[:Q]
     return acc.float() * qscale
 
 
-def _head_scores_matmul(index: SparseIndex, qids: torch.Tensor,
-                        qw: torch.Tensor) -> torch.Tensor:
-    """Head scores as one full-head product, (Q, N_pad) f32.  On CUDA a bf16
-    head contracts in bf16 with f32 output (a library product: this large
+def head_product(W: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 query weights x (D, N) head rows → (Q, N) f32; an int8
+    head's per-doc scale is left to the caller.  On CUDA a bf16 head
+    contracts in bf16 with f32 output (a library product: this large
     matmul sits outside any TPU kernel in the JAX package too); on the CPU
     both operands are upcast to f32, which is exact for bf16 inputs.  An f32
     head multiplies in full IEEE f32 whatever the caller's TF32 setting; the
     bf16 and int8 products need no pin (bf16 values are exact in TF32, and
     ``out_dtype=float32`` and ``_int_mm`` accumulate in f32 and int32)."""
-    W, _, _ = query_weight_matrix(index, qids, qw)
-    rows = index.head_rows
     if rows.dtype == torch.int8:
-        return int8_head_matmul(W, rows) * index.head_scale[None, :]
+        return int8_head_matmul(W, rows)
     W = W.to(rows.dtype)
     if rows.dtype == torch.float32:
         with ieee_f32():
@@ -77,6 +80,16 @@ def _head_scores_matmul(index: SparseIndex, qids: torch.Tensor,
     if rows.is_cuda:
         return torch.mm(W, rows, out_dtype=torch.float32)
     return W.float() @ rows.float()
+
+
+def _head_scores_matmul(index: SparseIndex, qids: torch.Tensor,
+                        qw: torch.Tensor) -> torch.Tensor:
+    """Head scores as one full-head product, (Q, N_pad) f32."""
+    W, _, _ = query_weight_matrix(index, qids, qw)
+    scores = head_product(W, index.head_rows)
+    if index.head_rows.dtype == torch.int8:
+        scores = scores * index.head_scale[None, :]
+    return scores
 
 
 def _head_scores_capped(index: SparseIndex, qids: torch.Tensor,

@@ -53,6 +53,20 @@ def rerank_pairs_topk(rank_index, qids2: torch.Tensor, qw2: torch.Tensor,
     return vals, cand_rows.gather(1, sel)
 
 
+def tokenize_queries(preprocessor: Preprocessor, texts: Sequence[str],
+                     lang: str) -> List[List[str]]:
+    """Query tokens: the "best" pipeline through the C++ tokenizer when it
+    builds, else ``preprocessor`` in Python (the same tokens)."""
+    if preprocessor.spec.name == "best":
+        from tdr_torch.text.fast import fast_available
+
+        if fast_available():
+            from tdr_torch.text.fast import fast_tokenize_texts
+
+            return fast_tokenize_texts(list(texts), lang)
+    return [preprocessor(t, lang) for t in texts]
+
+
 @dataclass
 class CascadeRetriever:
     """Two-stage retrieve: candidate_models[lang] → rerank_models[lang]."""
@@ -73,14 +87,8 @@ class CascadeRetriever:
 
     def _tokenize(self, queries: Sequence[str], q_idx: Sequence[int],
                   lang: str) -> List[List[str]]:
-        if self.preprocessor.spec.name == "best":
-            from tdr_torch.text.fast import fast_available
-
-            if fast_available():
-                from tdr_torch.text.fast import fast_tokenize_texts
-
-                return fast_tokenize_texts([queries[i] for i in q_idx], lang)
-        return [self.preprocessor(queries[i], lang) for i in q_idx]
+        return tokenize_queries(self.preprocessor,
+                                [queries[i] for i in q_idx], lang)
 
     def retrieve(self, queries: Sequence[str], langs: Sequence[str],
                  k: int = 10) -> List[List[str]]:

@@ -203,3 +203,113 @@ def test_segmented_checkpoints_and_recovery(tmp_path):
     assert not os.path.exists(tmp_path / ".seg3.tmp-99")
     ts3 = tckpt.load_segmented(str(tmp_path / "seg2"), device="cpu")
     np.testing.assert_array_equal(ts3.topk_tokens(q, 10)[1], tr)
+
+
+def _sharded_world(int8=False):
+    from tdr.parallel import build_sharded_index
+    from tdr.text import build_vocab, encode_docs, encode_queries
+
+    docs = _docs(6, n=400)
+    vocab = build_vocab(docs)
+    coo = encode_docs(docs, vocab)
+    cfg = dict(CFG, head_dtype="int8" if int8 else "bfloat16",
+               doc_pad_multiple=8, nnz_pad_multiple=64)
+    js = build_sharded_index(*coo, vocab.size, n_shards=4,
+                             index_cfg=IndexConfig(**cfg))
+    qids, qw = encode_queries(_queries(docs, seed=2, n=20), vocab, 16)
+    return js, qids, qw
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_sharded_index_loads_both_ways(int8, tmp_path):
+    """``tdr``'s ``save_sharded_index`` -> the port's ``load_sharded_index``
+    (shard s on data device s) -> the port's save -> ``tdr``'s load: equal
+    top-k at every step, arrays bit for bit."""
+    import jax.numpy as jnp
+    from tdr.parallel import make_mesh as j_make_mesh
+    from tdr.parallel import sharded_score_topk as j_topk
+    from tdr_torch.parallel import make_mesh, sharded_score_topk
+
+    js, qids, qw = _sharded_world(int8)
+    assert 0 < js.head_size < js.vocab_size
+    assert (js.head_scale is not None) == int8
+    jckpt.registry.save_sharded_index(str(tmp_path / "j"), js)
+    mesh = make_mesh(data=4, devices=["cpu"] * 4)
+    ts = tckpt.load_sharded_index(str(tmp_path / "j"), mesh)
+    assert all(sh.head_rows.device == torch.device("cpu") for sh in ts.shards)
+    assert ts.shards[0].head_rows.dtype == (torch.int8 if int8
+                                            else torch.bfloat16)
+    jv, jr = j_topk(j_make_mesh(data=4), js, jnp.asarray(qids),
+                    jnp.asarray(qw), 10)
+    tv, tr = sharded_score_topk(mesh, ts, torch.from_numpy(qids),
+                                torch.from_numpy(qw), 10)
+    assert_same_topk(tv, tr, jv, jr, rtol=1e-6, atol=CUMSUM_ATOL)
+
+    tckpt.save_sharded_index(str(tmp_path / "t"), ts)
+    js2 = jckpt.registry.load_sharded_index(str(tmp_path / "t"))
+    for name in ("indptr", "postings_doc", "postings_w", "head_rows",
+                 "df_local", "doc_len", "head_slot", "idf", "n_valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(js2, name)),
+                                      np.asarray(getattr(js, name)))
+    jv2, jr2 = j_topk(j_make_mesh(data=4), js2, jnp.asarray(qids),
+                      jnp.asarray(qw), 10)
+    np.testing.assert_array_equal(np.asarray(jv2), np.asarray(jv))
+    np.testing.assert_array_equal(np.asarray(jr2), np.asarray(jr))
+    ts2 = tckpt.load_sharded_index(str(tmp_path / "t"), device="cpu")
+    tv2, tr2 = sharded_score_topk(mesh, ts2, torch.from_numpy(qids),
+                                  torch.from_numpy(qw), 10)
+    assert torch.equal(tv2, tv) and torch.equal(tr2, tr)
+
+
+@pytest.mark.parametrize("s", [0, 2])
+def test_build_index_global_overrides(s):
+    """A shard built with the corpus-global statistics (``head_slot``,
+    ``idf``, ``avgdl``, ``tail_pmax``) and the shared pads scores its docs
+    as the single-device index does: its head columns are the single
+    index's (bf16 values equal), its tail postings the single index's rows
+    of its docs; and the port's shard equals ``tdr``'s array for array."""
+    from tdr.index import build_index as j_build_index
+    from tdr.text import build_vocab, encode_docs
+    from tdr_torch.index.build import build_index as t_build_index
+
+    docs = _docs(8, n=300)
+    vocab = build_vocab(docs)
+    doc_ids, term_ids, tfs, doc_lens = encode_docs(docs, vocab)
+    tcfg = tconfig.IndexConfig(**CFG)
+    single = t_build_index(doc_ids, term_ids, tfs, doc_lens, vocab.size,
+                           index_cfg=tcfg, df_host=vocab.df, device="cpu")
+    assert 0 < single.head_size < single.vocab_size
+    lo, hi = 75 * s, 75 * (s + 1)
+    sel = (doc_ids >= lo) & (doc_ids < hi)
+    kw = dict(head_size=single.head_size, idf=single.stats.idf.numpy(),
+              head_slot=single.head_slot.numpy(),
+              avgdl=float(single.stats.avgdl), n_docs_pad=128, nnz_pad=4096,
+              tail_pmax=single.tail_pmax)
+    args = (doc_ids[sel] - lo, term_ids[sel], tfs[sel], doc_lens[lo:hi],
+            vocab.size)
+    shard = t_build_index(*args, index_cfg=tcfg, device="cpu", **kw)
+    assert (shard.n_docs_pad, shard.tail_pmax) == (128, single.tail_pmax)
+    assert shard.postings_doc.shape[0] >= 4096
+    np.testing.assert_array_equal(
+        shard.head_rows[:, :hi - lo].float().numpy(),
+        single.head_rows[:, lo:hi].float().numpy())
+    assert not shard.head_rows[:, hi - lo:].any()
+    # every tail term's postings: the single index's, restricted to the slice
+    for t in np.nonzero(single.head_slot.numpy() < 0)[0][:200]:
+        a, b = int(single.indptr[t]), int(single.indptr[t + 1])
+        d = single.postings_doc[a:b].numpy()
+        keep = (d >= lo) & (d < hi)
+        a2, b2 = int(shard.indptr[t]), int(shard.indptr[t + 1])
+        np.testing.assert_array_equal(shard.postings_doc[a2:b2].numpy(),
+                                      d[keep] - lo)
+        np.testing.assert_array_equal(shard.postings_w[a2:b2].numpy(),
+                                      single.postings_w[a:b].numpy()[keep])
+    jshard = j_build_index(*args, index_cfg=IndexConfig(**CFG), **kw)
+    for name in ("indptr", "postings_doc", "head_slot"):
+        np.testing.assert_array_equal(getattr(shard, name).numpy(),
+                                      np.asarray(getattr(jshard, name)))
+    np.testing.assert_array_equal(
+        shard.head_rows.view(torch.int16).numpy(),
+        np.asarray(jshard.head_rows).view(np.int16))
+    np.testing.assert_allclose(shard.postings_w.numpy(),
+                               np.asarray(jshard.postings_w), rtol=1e-6)
