@@ -134,6 +134,28 @@ Phases, in order (any failure exits non-zero and prints no result line):
    on mesh device 1): lists equal ``CascadeRetriever``'s, recall@10 0.774;
    (f) ``save_sharded_index`` / ``load_sharded_index`` of (a)'s en index,
    the loaded lists and scores equal.
+13. the CLI (``tdr_torch.cli``), the sharded train step and real text:
+   (a) after phase 12, phase 2's corpus and queries written as ``synth``
+   writes them, then ``build`` (4 GiB head budget, bf16 heads), ``eval``
+   (recall@10 held to 0.765; K1 and K2 launches counted), ``retrieve``
+   (rows equal to phase 4's lists but for near-ties) and ``validate``, all
+   through ``tdr_torch.cli.main`` in this process; (b) ``serve`` on (a)'s
+   registry as a subprocess (every read with a timeout): 64 single
+   requests over the seven languages, a burst of 256, a malformed line
+   and a request with no ``lang``, answers held to the in-process router;
+   then ``serve --mutable``: an added doc found, a deleted one gone; (c)
+   phase 7's dense model saved with ``save_dense_model`` and retrieved by
+   ``retrieve-dense`` (one K3 launch, ``DenseModel.retrieve``'s lists);
+   (d) after 11b, the sharded train step at ``DenseConfig()`` width on a
+   data 2 x model 2 mesh over ``cuda:(i % device_count)``, 20 steps of
+   11b's batches from one init against the single-device step (losses
+   within rtol 1e-2, params' 99th percentile within lr, data replicas
+   bit-equal, per-device bytes equal to ``train_state_layout``, a sharded
+   checkpoint round trip equal to straight training), then ``train --mesh
+   2x2`` through the CLI (unsharded on one card: a mesh needs more than
+   one visible device); (e) last, ``real_eval_corpus`` through the build
+   and the router on the card at the "best" and "porter" pipelines, lists
+   equal to the CPU's, "best" recall@10 >= 0.95 and recall@1 >= 0.90.
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
@@ -779,7 +801,7 @@ def check_head_scores(index, qids, qw, label, reps=10):
 
 def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
     """Phase 7: the dense path, and 9b: K3's f32 body at the pass's shape;
-    returns K3's records (bf16, f32) at the pass's shape, the flat index
+    returns K3's records (bf16, f32) at the pass's shape, the dense model
     and the encoded queries."""
     import numpy as np
     import torch
@@ -881,7 +903,7 @@ def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
         f"queries -> {bq.shape[0] / ivf_ms * 1e3:.1f} queries/s, top-10 "
         f"overlap with exact "
         f"{overlap:.4f}")
-    return rec, rec_f32, dense.flat, q_enc
+    return rec, rec_f32, dense, q_enc
 
 
 def f32_flat_phase(flat, q_enc, reps):
@@ -2510,6 +2532,563 @@ def parallel_phase(models, queries, full_docs, full_scores, batch, flat,
     return paths
 
 
+# -- phase 13: the CLI, serve, the sharded train step, real text -----------
+
+def write_cli_inputs(corpus, queries, out):
+    """``corpus`` and ``queries`` as ``synth`` writes them: corpus.json and
+    dev.csv (query_id, query, positive_docs, lang)."""
+    import csv
+
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "corpus.json"), "w") as f:
+        json.dump([{"docid": d, "text": t, "lang": l} for d, t, l in
+                   zip(corpus.docids, corpus.texts, corpus.langs)], f)
+    with open(os.path.join(out, "dev.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["query_id", "query", "positive_docs", "lang"])
+        for row in zip(queries.query_ids, queries.queries,
+                       queries.positive_docs, queries.langs):
+            w.writerow(row)
+    return os.path.join(out, "corpus.json"), os.path.join(out, "dev.csv")
+
+
+def run_cli(argv):
+    """``tdr_torch.cli.main(argv)`` in this process (so that launches
+    count): (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from tdr_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue()
+
+
+class call_clock:
+    """Wrap ``owner.name`` (a function or method) for the ``with`` block,
+    adding each call's seconds to ``seconds[name]``."""
+
+    def __init__(self, seconds, *targets):
+        self.seconds, self.targets, self.saved = seconds, targets, []
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+
+            def timed_fn(*a, _fn=fn, _name=name, **k):
+                import torch
+
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                if DEVICE != "cpu":
+                    torch.cuda.synchronize()
+                self.seconds[_name] = (self.seconds.get(_name, 0.0)
+                                       + time.perf_counter() - t0)
+                return out
+
+            setattr(owner, name, timed_fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def same_docs(got, docs, scores, rtol=1e-5, atol=1e-4):
+    """A list without scores (a submission row, a served answer) against
+    the router's lists: equal, except that a rank may swap with another of
+    equal score within the tolerance."""
+    import numpy as np
+
+    if len(got) != len(docs):
+        return False
+    s = np.asarray(scores, np.float64)
+    return all(a == b or np.isclose(s, s[j], rtol=rtol, atol=atol).sum() > 1
+               or j == len(docs) - 1 for j, (a, b) in enumerate(zip(got,
+                                                                   docs)))
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def cli_phase(corpus, queries, full_docs, full_scores, tmp):
+    """13a: phase 2's corpus and queries in ``synth``'s files, then the
+    CLI's ``build`` (4 GiB head budget, bf16 heads), ``eval``, ``retrieve``
+    and ``validate`` in this process.  Returns (launches in ``eval``, the
+    registry, the queries file)."""
+    import tdr_torch.ckpt as ckpt
+    from tdr_torch.eval import read_submission
+    from tdr_torch.rank import LanguageRouter
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    corpus_path, q_path = write_cli_inputs(corpus, queries,
+                                           os.path.join(tmp, "data"))
+    write_s = time.perf_counter() - t0
+    reg = os.path.join(tmp, "registry")
+    secs = {}
+    t0 = time.perf_counter()
+    with call_clock(secs, (ckpt, "save_registry")):
+        rc, _ = run_cli(["build", "--device", DEVICE, "--corpus", corpus_path,
+                         "--out", reg, "--head-budget-gb",
+                         HEAD_BUDGET / 2**30, "--head-dtype", "bfloat16"])
+    build_s = time.perf_counter() - t0
+    need(rc == 0, f"13a: build exited {rc}")
+    with call_clock(secs, (ckpt, "load_registry"),
+                    (LanguageRouter, "retrieve")):
+        (rc, out), counts = counted(lambda: run_cli(
+            ["eval", "--device", DEVICE, "--index", reg, "--queries",
+             q_path]))
+    need(rc == 0, f"13a: eval exited {rc}")
+    report = json.loads(out)
+    check_recall("13a CLI eval", report["recall@10"], 0.765)
+    need(counts["tail_compact"] >= 1 and counts["fused_head"] >= 1,
+         f"13a: eval did not launch K1 and K2: {counts}")
+    nq = len(queries.queries)
+    sub = os.path.join(tmp, "submission.csv")
+    t0 = time.perf_counter()
+    rc, _ = run_cli(["retrieve", "--device", DEVICE, "--index", reg,
+                     "--queries", q_path, "--out", sub])
+    retrieve_s = time.perf_counter() - t0
+    need(rc == 0, f"13a: retrieve exited {rc}")
+    ids, rows = read_submission(sub)
+    need(ids == list(queries.query_ids), "13a: submission ids out of order")
+    bad = [q for q in range(nq) if not same_docs(rows[q], full_docs[q],
+                                                   full_scores[q])]
+    need(not bad, f"13a: submission rows differ from phase 4's lists beyond "
+                  f"near-ties at queries {bad[:10]}")
+    swapped = sum(r != list(d) for r, d in zip(rows, full_docs))
+    rc, out = run_cli(["validate", "--submission", sub])
+    need(rc == 0 and out.strip() == "OK", f"13a: validate: {rc} {out!r}")
+    say(f"[13a cli] files written in {write_s:.1f} s; build {build_s:.1f} s "
+        f"(of it save_registry {secs['save_registry']:.1f} s, "
+        f"{dir_bytes(reg) / 1e9:.3f} GB); eval: load_registry "
+        f"{secs['load_registry']:.1f} s, the pass "
+        f"{secs['retrieve']:.3f} s -> {nq / secs['retrieve']:.1f} queries/s, "
+        f"recall@10 {report['recall@10']:.4f}, launches {counts}; retrieve "
+        f"{retrieve_s:.1f} s, {nq} rows equal to phase 4's lists "
+        f"({swapped} inside near-ties); validate OK; phase 13a "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, reg, q_path
+
+
+class Server:
+    """``python -m tdr_torch.cli serve`` as a subprocess: request lines
+    in, answer lines out, every read with a timeout."""
+
+    def __init__(self, reg, *flags, timeout=600):
+        import queue
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tdr_torch.cli", "serve", "--device",
+             DEVICE, "--index", reg, "--k", "10", *flags],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, cwd=HERE, text=True, bufsize=1)
+        self.out, self.err = queue.Queue(), queue.Queue()
+        self.log = []
+        for stream, q in ((self.proc.stdout, self.out),
+                          (self.proc.stderr, self.err)):
+            threading.Thread(target=self._pump, args=(stream, q),
+                             daemon=True).start()
+        self.load_s = None
+        while True:                     # the log line after the warm-up
+            line = self._get(self.err, timeout)
+            self.log.append(line)
+            if "loaded" in line and "models in" in line:
+                self.load_s = float(line.split("models in")[1].split()[0])
+            if "serving" in line:
+                break
+        self.ready_s = time.perf_counter() - self.t0
+
+    @staticmethod
+    def _pump(stream, q):
+        for line in stream:
+            q.put((time.perf_counter(), line.rstrip("\n")))
+        q.put((time.perf_counter(), None))
+
+    def _get(self, q, timeout):
+        import queue
+
+        try:
+            _, line = q.get(timeout=timeout)
+        except queue.Empty:
+            self.close(kill=True)
+            fail(f"serve: no line within {timeout} s; log {self.log[-5:]}")
+        if line is None:
+            self.close(kill=True)
+            fail(f"serve ended early; log {self.log[-5:]}")
+        return line
+
+    def send(self, *requests):
+        for r in requests:
+            self.proc.stdin.write((r if isinstance(r, str)
+                                   else json.dumps(r)) + "\n")
+        self.proc.stdin.flush()
+
+    def answers(self, n, timeout=120):
+        return [json.loads(self._get(self.out, timeout)) for _ in range(n)]
+
+    def close(self, kill=False, timeout=120):
+        if kill:
+            self.proc.kill()
+            self.proc.wait(timeout=timeout)
+            return self.proc.returncode
+        self.proc.stdin.close()
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            fail("serve did not exit within its timeout after end of input")
+
+
+def serve_phase(reg, queries, full_docs, full_scores, router):
+    """13b: the registry served by ``serve`` in a subprocess: 64 single
+    requests over the seven languages, a burst of 256, a malformed line and
+    a request with no ``lang``, answers held to the in-process router;
+    then ``--mutable``: an add found, a delete gone."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    by_lang = {}
+    for i, l in enumerate(queries.langs):
+        by_lang.setdefault(l, []).append(i)
+    singles = [i for k in range(64) for l in sorted(by_lang)
+               if k < len(by_lang[l]) for i in [by_lang[l][k]]][:64]
+    burst = list(range(256))
+
+    def held(i, ans, docs, scores):
+        need("error" not in ans, f"13b: an error for query {i}: {ans}")
+        need(same_docs(ans["docids"], docs, scores)
+             and np.allclose(ans["scores"], np.asarray(scores)[
+                 :len(ans["scores"])], rtol=1e-5, atol=5e-5),
+             f"13b: served answer for query {i} differs from the router's: "
+             f"{ans} vs {list(docs)} {list(scores)}")
+
+    srv = Server(reg)
+    lat = []
+    for i in singles:
+        t0 = time.perf_counter()
+        srv.send({"query": queries.queries[i], "lang": queries.langs[i],
+                  "k": 10})
+        ans = srv.answers(1)[0]
+        lat.append(time.perf_counter() - t0)
+        held(i, ans, full_docs[i], full_scores[i])
+    t0 = time.perf_counter()
+    srv.send(*[{"query": queries.queries[i], "lang": queries.langs[i]}
+               for i in burst])
+    got = srv.answers(len(burst))
+    burst_s = time.perf_counter() - t0
+    for i, ans in zip(burst, got):
+        held(i, ans, full_docs[i], full_scores[i])
+    j = singles[-1]
+    srv.send("this is not json", {"query": queries.queries[j]})
+    bad, nolang = srv.answers(2)
+    need(set(bad) == {"error"}, f"13b: malformed line answered {bad}")
+    d, sc = router.retrieve_with_scores([queries.queries[j]], [None], k=10)
+    held(j, nolang, d[0], sc[0])
+    rc = srv.close()
+    need(rc == 0, f"13b: serve exited {rc}")
+    say(f"[13b serve] start-up {srv.ready_s:.1f} s to the first request "
+        f"(registry load {srv.load_s:.1f} s, then the warm-up of every "
+        f"language at every bucket); {len(singles)} single requests over "
+        f"{len(by_lang)} languages: median {statistics.median(lat) * 1e3:.2f}"
+        f" ms (min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}); a burst "
+        f"of {len(burst)}: {burst_s:.3f} s -> {len(burst) / burst_s:.1f} "
+        f"queries/s; every answer equal to the router's (docids but for "
+        f"near-ties, scores within rtol 1e-5 of serve's 4 places); the "
+        f"malformed line answered {bad}; exit code {rc}")
+
+    srv = Server(reg, "--mutable")
+    text = "zyxqwv smokeprobe harbourlight"
+    srv.send({"add": {"docid": "smoke-live-1", "text": text, "lang": "en"}})
+    added = srv.answers(1)[0]
+    srv.send({"query": text, "lang": "en"})
+    found = srv.answers(1)[0]
+    srv.send({"delete": "smoke-live-1"}, {"query": text, "lang": "en"})
+    deleted, after = srv.answers(2)
+    rc = srv.close()
+    need(added == {"added": "smoke-live-1", "lang": "en"},
+         f"13b: add answered {added}")
+    need(found.get("docids", [None])[0] == "smoke-live-1",
+         f"13b: the added doc was not found first: {found}")
+    need(deleted == {"deleted": ["smoke-live-1"]}
+         and "smoke-live-1" not in after.get("docids", ["smoke-live-1"]),
+         f"13b: delete answered {deleted}, then {after}")
+    need(rc == 0, f"13b: serve --mutable exited {rc}")
+    say(f"[13b serve --mutable] start-up {srv.ready_s:.1f} s; add -> found "
+        f"first (score {found['scores'][0]}); delete -> not returned; "
+        f"phase 13b {time.perf_counter() - t_phase:.1f} s")
+
+
+def cli_dense_phase(dense, queries, q_path, tmp):
+    """13c: phase 7's dense model saved with ``save_dense_model`` and
+    retrieved by the CLI's ``retrieve-dense``: one K3 launch, the lists of
+    ``DenseModel.retrieve``."""
+    from tdr_torch.ckpt import save_dense_model
+    from tdr_torch.eval import read_submission
+
+    path, sub = os.path.join(tmp, "dense"), os.path.join(tmp, "dense.csv")
+    t0 = time.perf_counter()
+    save_dense_model(path, dense)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (rc, out), counts = counted(lambda: run_cli(
+        ["retrieve-dense", "--device", DEVICE, "--index", path, "--queries",
+         q_path, "--out", sub]))
+    cli_s = time.perf_counter() - t0
+    need(rc == 0, f"13c: retrieve-dense exited {rc}")
+    need(counts["fused_flat"] == 1,
+         f"13c: retrieve-dense launched K3 {counts['fused_flat']} times")
+    ref = dense.retrieve(queries.queries, k=10)
+    rows = read_submission(sub)[1]
+    need(rows == ref, "13c: retrieve-dense lists differ from "
+                      "DenseModel.retrieve's")
+    say(f"[13c retrieve-dense] save_dense_model {save_s:.1f} s "
+        f"({dir_bytes(path) / 1e6:.1f} MB); the command (load, encode, "
+        f"search) {cli_s:.1f} s; launches {counts}; {len(rows)} lists equal "
+        f"to DenseModel.retrieve's; recall@10 "
+        f"{json.loads(out)['recall@10']:.4f}")
+    return counts
+
+
+def sharded_train_phase(batches, cfg=None, n_steps=20, devices=None):
+    """13d: the sharded train step at ``DenseConfig()`` width on a
+    ("data" 2, "model" 2) mesh over ``cuda:(i % device_count)``, from one
+    init against the single-device step: losses at every step within rtol
+    1e-2 and params (99th percentile within lr, every entry within Adam's
+    bound), the bounds ``tests/test_torch_train_sharded.py`` measures both
+    packages' CPU gaps against; data replicas bit-equal; per-device bytes
+    equal to ``train_state_layout``; a checkpoint round trip of the
+    sharded state equal to straight training for 2 more steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tdr_torch.ckpt import load_train_state, save_train_state
+    from tdr_torch.parallel import make_mesh
+    from tdr_torch.parallel.train import train_state_layout
+    from tdr_torch.train import (create_train_state, make_train_step,
+                                 shard_train_state, unshard_train_state)
+    from tdr_torch.utils.config import DenseConfig
+
+    t_phase = time.perf_counter()
+    cfg = cfg or DenseConfig()
+    lr = 1e-3
+    if devices is None:
+        n = torch.cuda.device_count() if DEVICE != "cpu" else 1
+        devices = [DEVICE if DEVICE == "cpu" else f"cuda:{i % n}"
+                   for i in range(4)]
+    mesh = make_mesh(data=2, model=2, devices=devices)
+    need(len(batches) >= n_steps + 2, f"13d: {len(batches)} batches")
+    step = make_train_step()
+    single = create_train_state(cfg, lr=lr, seed=0, device=DEVICE)
+    sharded = shard_train_state(mesh, create_train_state(
+        cfg, lr=lr, seed=0, device=DEVICE))
+    want = train_state_layout(cfg, mesh)
+    need(sharded.per_device_bytes() == want,
+         f"13d: per-device bytes {sharded.per_device_bytes()} != layout "
+         f"{want}")
+    whole = sum(p.numel() * 12 for p in single.model.parameters())
+
+    mesh_devs = sorted({str(x) for x in mesh.devices.flat})
+
+    def run(state):
+        losses, times = [], []
+        if DEVICE != "cpu":
+            for d in mesh_devs:
+                torch.cuda.reset_peak_memory_stats(d)
+        for b in batches[:n_steps]:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"].item())          # waits for the step
+            times.append(time.perf_counter() - t0)
+        peak = ({d: torch.cuda.max_memory_allocated(d) for d in mesh_devs}
+                if DEVICE != "cpu" else {})
+        return state, np.array(losses), times, peak
+
+    single, l1, t1, p1 = run(single)
+    sharded, l2, t2, p2 = run(sharded)
+    gap = np.abs(l2 - l1) / l1
+    need(np.isfinite(l2).all() and gap.max() <= 1e-2,
+         f"13d: sharded losses {l2.round(5).tolist()} against unsharded "
+         f"{l1.round(5).tolist()} (gap {gap.max():.3g}, limit rtol 1e-2)")
+    a = unshard_train_state(sharded).model.state_dict()
+    b = single.model.state_dict()
+    d = torch.cat([(a[k].float() - b[k].float()).abs().flatten().cpu()
+                   for k in a if not k.endswith("attn.key.bias")]).numpy()
+    worst = max((a[k] - b[k]).abs().max().item() for k in a)
+    q99 = float(np.quantile(d, 0.99))
+    need(q99 <= lr and worst <= 2 * n_steps * 1.004 * lr,
+         f"13d: params after {n_steps} steps: 99th percentile {q99:.3g} "
+         f"(limit {lr}), max {worst:.3g} (Adam's bound "
+         f"{2 * n_steps * 1.004 * lr:.3g})")
+    rows, n_model = mesh.shape["data"], mesh.shape["model"]
+    for dd in range(1, rows):
+        for m in range(n_model):
+            pa, pb = sharded.params[dd][m], sharded.params[0][m]
+            oa, ob = sharded.optimizers[dd][m], sharded.optimizers[0][m]
+            for k in pa:
+                same = torch.equal(pa[k].cpu(), pb[k].cpu()) and all(
+                    torch.equal(oa.state[pa[k]][s].cpu(),
+                                ob.state[pb[k]][s].cpu())
+                    for s in ("exp_avg", "exp_avg_sq"))
+                need(same, f"13d: data replica {dd} of model shard {m} "
+                           f"differs from replica 0 at {k}")
+    tmp = tempfile.mkdtemp(prefix="tdr_sharded_")
+    try:
+        path = os.path.join(tmp, "state")
+        save_train_state(path, sharded)
+
+        def resumed():
+            st = load_train_state(path, shard_train_state(
+                mesh, create_train_state(cfg, lr=lr, seed=7, device=DEVICE)))
+            for bb in batches[n_steps:n_steps + 2]:
+                st, _ = step(st, bb)
+            return st
+
+        straight = sharded
+        for bb in batches[n_steps:n_steps + 2]:
+            straight, _ = step(straight, bb)
+        r1, r2 = resumed(), resumed()
+
+        def differ(x, y):
+            out = 0.0
+            for row_x, row_y, ox, oy in zip(x.params, y.params, x.optimizers,
+                                            y.optimizers):
+                for px, py, qx, qy in zip(row_x, row_y, ox, oy):
+                    for k in px:
+                        out = max(out, (px[k] - py[k]).abs().max().item(),
+                                  *[(qx.state[px[k]][s] - qy.state[py[k]][s])
+                                    .abs().max().item()
+                                    for s in ("exp_avg", "exp_avg_sq")])
+            return out
+
+        spread, resume_gap = differ(r1, r2), differ(straight, r1)
+        need(r1.step == straight.step == n_steps + 2
+             and resume_gap <= spread,
+             f"13d: save + load + 2 sharded steps differ from 2 straight "
+             f"steps by {resume_gap:.3g} (two resumed runs: {spread:.3g})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ms1, ms2 = statistics.median(t1) * 1e3, statistics.median(t2) * 1e3
+    say(f"[13d sharded train] dim {cfg.dim} depth {cfg.depth} heads "
+        f"{cfg.heads} {cfg.dtype}, batches of {batches[0]['q_ids'].shape[0]} "
+        f"x (1 + 1 + {batches[0]['n_ids'].shape[1]}) x {cfg.max_len} tokens; "
+        f"mesh data 2 x model 2 over {[str(x) for x in mesh.devices.flat]}: "
+        f"{n_steps} steps, step median sharded {ms2:.2f} ms against "
+        f"unsharded {ms1:.2f} ms in this process ({ms2 / ms1:.2f}x); losses "
+        f"{l1[0]:.4f} -> {l1[-1]:.4f} unsharded, {l2[0]:.4f} -> "
+        f"{l2[-1]:.4f} sharded, largest gap {gap.max():.3g} (rtol 1e-2); "
+        f"params 99th percentile {q99:.3g} (limit {lr}), max {worst:.3g}; "
+        f"data replicas bit-equal; per-device param + moment bytes {want} "
+        f"== layout (one unsharded state {whole}); max_memory_allocated, "
+        f"both states resident, unsharded "
+        f"{ {k: round(v / 2**30, 3) for k, v in p1.items()} } GiB, sharded "
+        f"{ {k: round(v / 2**30, 3) for k, v in p2.items()} } GiB; resume "
+        f"gap {resume_gap:.3g} (two resumed runs {spread:.3g}); phase 13d "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def cli_train_phase(tmp, mesh_arg="2x2"):
+    """The CLI's ``train --mesh 2x2`` at ``DenseConfig()`` width on a
+    ``synth`` corpus (2,000 docs, 256 train queries, one epoch of batches
+    of 64): ``tdr``'s rule takes a mesh only when more than one CUDA
+    device is visible, so on one card the step is unsharded and on four
+    it is the sharded one over every card.  The checkpoint it writes loads
+    and retrieves."""
+    import torch
+    import tdr_torch.train as train_pkg
+    from tdr_torch.ckpt import load_dense_model
+    from tdr_torch.data import load_queries
+    from tdr_torch.train import ShardedTrainState
+
+    t0 = time.perf_counter()
+    data, ck = os.path.join(tmp, "train_data"), os.path.join(tmp, "dense")
+    rc, _ = run_cli(["synth", "--docs", 2000, "--queries", 256, "--seed", 5,
+                     "--out", data])
+    need(rc == 0, f"13d: synth exited {rc}")
+    seen = {}
+    real = train_pkg.train_dense_retriever
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen["mesh"], seen["state"] = k.get("mesh"), out[1]
+        return out
+
+    train_pkg.train_dense_retriever = spy
+    try:
+        rc, _ = run_cli(["train", "--device", DEVICE, "--corpus",
+                         os.path.join(data, "corpus.json"), "--train",
+                         os.path.join(data, "train.csv"), "--out", ck,
+                         "--mesh", mesh_arg, "--epochs", 1, "--batch", 64])
+    finally:
+        train_pkg.train_dense_retriever = real
+    need(rc == 0, f"13d: train exited {rc}")
+    n_dev = torch.cuda.device_count() if DEVICE != "cpu" else 1
+    sharded = isinstance(seen["state"], ShardedTrainState)
+    need(sharded == (n_dev > 1),
+         f"13d: train --mesh {mesh_arg} on {n_dev} device(s) ran "
+         f"{'sharded' if sharded else 'unsharded'}")
+    if sharded:
+        devs = sorted({str(d) for d in seen["mesh"].devices.flat})
+        need(len(devs) == min(4, n_dev), f"13d: train's mesh spans {devs}")
+    dense = load_dense_model(ck, device=DEVICE)
+    qs = load_queries(os.path.join(data, "dev.csv"))
+    res = dense.retrieve(qs.queries, k=10)
+    need(all(len(r) == 10 for r in res), "13d: the trained checkpoint's "
+                                         "lists are short")
+    say(f"[13d cli train] train --mesh {mesh_arg} on {n_dev} device(s): "
+        f"{'sharded over ' + str(sorted({str(d) for d in seen['mesh'].devices.flat})) if sharded else 'unsharded (one device visible)'}"
+        f", {seen['state'].step} steps; the checkpoint loads and retrieves "
+        f"{len(res)} lists; {time.perf_counter() - t0:.1f} s")
+
+
+def realtext_phase():
+    """13e: ``real_eval_corpus`` (140 docs, 70 queries, seven languages)
+    through the build and the router on the card at the "best" and
+    "porter" pipelines, held to the same calls on the CPU; "best" to the
+    recall floors of ``tests/test_realtext_eval.py`` (0.95, 0.90)."""
+    from tdr_torch.data.loaders import Corpus
+    from tdr_torch.data.realtext import real_eval_corpus
+    from tdr_torch.eval import recall_at_k
+    from tdr_torch.rank import LanguageRouter, build_language_models
+    from tdr_torch.text import Preprocessor
+
+    docs, docids, dlangs, qs, qlangs, positives = real_eval_corpus()
+    out = []
+    for pipeline in ("best", "porter"):
+        lists = {}
+        for dev in (DEVICE, "cpu"):
+            models = build_language_models(
+                Corpus(docids, docs, dlangs),
+                preprocessor=Preprocessor(pipeline), device=dev)
+            router = LanguageRouter(models, query_batch=16,
+                                    preprocessor=Preprocessor(pipeline))
+            lists[dev] = router.retrieve_with_scores(qs, qlangs, k=10)
+        (d, s), (rd, rs) = lists[DEVICE], lists["cpu"]
+        bad = [q for q in range(len(qs)) if not same_ranking(
+            d[q], s[q], rd[q], rs[q])]
+        need(not bad, f"13e {pipeline}: card lists differ from the CPU's at "
+                      f"queries {bad[:10]}")
+        r10 = recall_at_k(d, positives, 10)
+        r1 = recall_at_k([r[:1] for r in d], positives, 1)
+        if pipeline == "best":
+            need(r10 >= 0.95 and r1 >= 0.90,
+                 f"13e: real-text recall@10 {r10:.4f} / @1 {r1:.4f} below "
+                 f"0.95 / 0.90")
+        out.append(f"{pipeline}: recall@10 {r10:.4f}, recall@1 {r1:.4f}")
+    say(f"[13e real text] {len(docs)} docs, {len(qs)} queries, card lists "
+        f"== CPU lists; " + "; ".join(out))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=2000)
@@ -2721,9 +3300,10 @@ def main() -> None:
     rec_k2["launches"] = counts["fused_head"]
 
     # -- phase 7: the dense path ---------------------------------------------
-    rec_k3, rec_k3f, flat, q_enc = dense_phase(corpus, queries, bench_emb,
-                                               bench_q, args.reps,
-                                               args.profile)
+    rec_k3, rec_k3f, dense, q_enc = dense_phase(corpus, queries, bench_emb,
+                                                bench_q, args.reps,
+                                                args.profile)
+    flat = dense.flat
 
     # -- phase 8: the rest of the sparse path --------------------------------
     t8 = time.perf_counter()
@@ -2744,6 +3324,23 @@ def main() -> None:
                                 batch, flat, q_enc, bench_emb, bench_q,
                                 cascade, card, args.reps))
     del cascade
+
+    # -- phase 13a-c: the CLI in this process, serve as a subprocess -------
+    import shutil
+    import tempfile
+
+    t13 = time.perf_counter()
+    tmp13 = tempfile.mkdtemp(prefix="tdr_cli_")
+    try:
+        paths["cli_eval"], reg, q_path = cli_phase(corpus, queries, full_docs,
+                                                   full_scores, tmp13)
+        serve_phase(reg, queries, full_docs, full_scores, router)
+        shutil.rmtree(reg, ignore_errors=True)
+        k3_cli = cli_dense_phase(dense, queries, q_path, tmp13)
+    finally:
+        shutil.rmtree(tmp13, ignore_errors=True)
+    del dense
+    say(f"phase 13a-c: {time.perf_counter() - t13:.1f} s")
     for rec in (rec_k1, rec_k2):
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
 
@@ -2782,6 +3379,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_paths["train_dense_eval"] = train_width_phase(
         s_corpus, s_queries, mined, profile=args.profile)
+
+    # -- phase 13d: the sharded train step on 11b's batches -----------------
+    import itertools
+
+    from tdr_torch.train.contrastive import make_batches
+    from tdr_torch.utils.config import DenseConfig
+
+    sharded_train_phase(list(itertools.islice(make_batches(
+        mined, dict(zip(s_corpus.docids, s_corpus.texts)), DenseConfig(), 50,
+        2, seed=0), 22)))
+    tmp13 = tempfile.mkdtemp(prefix="tdr_cli_")
+    try:
+        cli_train_phase(tmp13)
+    finally:
+        shutil.rmtree(tmp13, ignore_errors=True)
     train_tf32_phase(s_corpus, mined)
     extras_phase(corpus)
     rec_k2["launches_by_path"]["train_mining"] = \
@@ -2791,8 +3403,16 @@ def main() -> None:
     rec_k3["launches_by_path"] = {
         "dense": rec_k3["launches"],
         "train_dense_eval": train_paths["train_dense_eval"]["fused_flat"],
-        "parallel_dense": paths["parallel_dense"]["fused_flat"]}
-    say(f"phase 11: {time.perf_counter() - t11:.1f} s")
+        "parallel_dense": paths["parallel_dense"]["fused_flat"],
+        "cli_retrieve_dense": k3_cli["fused_flat"]}
+    say(f"phase 11 (and 13d): {time.perf_counter() - t11:.1f} s")
+
+    # -- phase 13e: real text at the "best" and "porter" pipelines ---------
+    t13 = time.perf_counter()
+    _, real_counts = counted(realtext_phase)
+    for rec in (rec_k1, rec_k2):
+        rec["launches_by_path"]["realtext"] = real_counts[rec["name"]]
+    say(f"phase 13e: {time.perf_counter() - t13:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,

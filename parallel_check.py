@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Phase 12 of ``chip_smoke.py`` (the parallel serving layer) on its own,
-over every visible CUDA device.
+"""Phase 12 of ``chip_smoke.py`` (the parallel serving layer) and phase
+13d (the sharded train step, and ``train --mesh 2x2`` through the CLI) on
+their own, over every visible CUDA device.
 
     python3 parallel_check.py
 
@@ -11,7 +12,12 @@ phase 7's dense index and encoded queries; 8e's cascade) and then runs
 device_count)``.  On one card that is ``chip_smoke.py``'s phase 12; on
 four cards every shard lies on its own card, the pipelined cascade's
 stage 2 on a second card, and the collectives copy between cards, so each
-kernel launches on a card other than the current one.  Exits non-zero on
+kernel launches on a card other than the current one.  Then 13d: the
+sharded train step at ``DenseConfig()`` width over ``make_mesh(data=2,
+model=2)`` of the same devices (one shard a card on four) against the
+single-device step, on 22 batches of 50 pseudo-queries of phase 2's
+corpus, and the CLI's ``train --mesh 2x2`` (sharded when more than one
+card is visible).  Exits non-zero on
 any failed check; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,6 +79,25 @@ def main() -> None:
                               dense.flat, q_enc, bench_emb, bench_q, cascade,
                               card, 5)
     cs.say(json.dumps({"launches_by_path": paths}))
+
+    import itertools
+    import shutil
+    import tempfile
+
+    from tdr_torch.train.contrastive import make_batches
+    from tdr_torch.train.mining import make_pseudo_queries
+
+    t13 = time.perf_counter()
+    pseudo = make_pseudo_queries(corpus, 1100, seed=11)
+    cs.sharded_train_phase(list(itertools.islice(make_batches(
+        pseudo, dict(zip(corpus.docids, corpus.texts)), cfg, 50, 2, seed=0),
+        22)))
+    tmp = tempfile.mkdtemp(prefix="tdr_cli_")
+    try:
+        cs.cli_train_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cs.say(f"phase 13d: {time.perf_counter() - t13:.1f} s")
     cs.say(f"total {time.perf_counter() - t0:.1f} s")
     cs.say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ TPU kernels of ``tdr`` are hand-written CUDA (``tdr_torch/csrc``):
 ``tail_compact`` and ``fused_head`` on the BM25 path, ``fused_flat`` on the
 dense path, and ``head_scores`` behind its own entry point.
 
-Every entry point takes ``device=``; with none given it uses ``cuda`` and
+Every entry point takes ``device=`` (the command line, ``python -m
+tdr_torch.cli``, takes ``--device``); with none given it uses ``cuda`` and
 raises when CUDA is missing (it never falls back to the CPU quietly).
 """
 

@@ -433,9 +433,13 @@ def save_train_state(path: str, state) -> None:
     leaves of jax's flattened ``TrainState(params, opt_state, step)`` as
     ``l{i}`` in ``train_state.npz`` — the params (flax's sorted-key order),
     optax's ``count``, the ``mu`` leaves, the ``nu`` leaves, the step — so
-    that either package resumes from the other's file."""
-    from tdr_torch.train.contrastive import adam_moments
+    that either package resumes from the other's file.  A
+    ``ShardedTrainState`` is gathered first (the file is the same)."""
+    from tdr_torch.train.contrastive import (ShardedTrainState, adam_moments,
+                                             unshard_train_state)
 
+    if isinstance(state, ShardedTrainState):
+        state = unshard_train_state(state)
     os.makedirs(path, exist_ok=True)
     cfg = state.model.cfg
     count, mu, nu = adam_moments(state)
@@ -452,10 +456,18 @@ def save_train_state(path: str, state) -> None:
 def load_train_state(path: str, template):
     """Restore into ``template`` (a fresh ``TrainState`` from
     ``create_train_state`` with the same config; its learning rate and
-    weight decay are kept) and return it."""
+    weight decay are kept) and return it.  A ``ShardedTrainState``
+    template gives a new one on its mesh: the file is loaded whole, then
+    sharded again."""
     from tdr_torch.models.encoder import encoder_state_from_flax
-    from tdr_torch.train.contrastive import load_adam_moments
+    from tdr_torch.train.contrastive import (ShardedTrainState,
+                                             load_adam_moments,
+                                             shard_train_state,
+                                             unshard_train_state)
 
+    if isinstance(template, ShardedTrainState):
+        whole = load_train_state(path, unshard_train_state(template))
+        return shard_train_state(template.mesh, whole)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     _check_version(meta)
@@ -475,7 +487,8 @@ def load_train_state(path: str, template):
 
     with torch.no_grad():
         template.model.load_state_dict(state_dict(0, "train state param"))
-    load_adam_moments(template.optimizer, template.model, int(leaf[n]),
+    load_adam_moments(template.optimizer, template.model.named_parameters(),
+                      int(leaf[n]),
                       state_dict(n + 1, "train state mu"),
                       state_dict(2 * n + 1, "train state nu"))
     template.step = int(leaf[3 * n + 1])

@@ -46,10 +46,55 @@ def _dtype(cfg: DenseConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def product(x: torch.Tensor, weight: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``'s product, rounded to ``dtype``."""
+    return F.linear(x.to(dtype), weight.to(dtype))
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: the product rounded to ``dtype``, then the
     bias added in ``dtype``."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    return product(x, weight, dtype) + bias.to(dtype)
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return linear(x, lin.weight, lin.bias, dtype)
+
+
+def project_heads(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """A query, key or value projection as (B, heads, L, head_dim)."""
+    B, L, _ = y.shape
+    return linear(y, weight, bias, dtype).view(B, L, heads, -1).transpose(1, 2)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Masked softmax attention of (B, H, L, Dh) heads → (B, L, H * Dh),
+    before the output projection."""
+    B, H, L, Dh = q.shape
+    q = q / torch.tensor(math.sqrt(Dh)).to(dtype)
+    w = q @ k.transpose(-1, -2)                             # (B, H, L, L)
+    w = w.masked_fill(~mask, torch.finfo(dtype).min)
+    w = torch.softmax(w, dim=-1)
+    return (w @ v).transpose(1, 2).reshape(B, L, H * Dh)
+
+
+def mlp_hidden(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The MLP's up projection and tanh GELU."""
+    return F.gelu(linear(x, weight, bias, dtype), approximate="tanh")
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = _LN_EPS) -> torch.Tensor:
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    mul = torch.rsqrt(var + eps) * weight
+    return (x - mu) * mul + bias
 
 
 class LayerNorm(nn.Module):
@@ -64,11 +109,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mu = x.mean(dim=-1, keepdim=True)
-        var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mu) * mul + self.bias
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class MlpBlock(nn.Module):
@@ -79,7 +120,7 @@ class MlpBlock(nn.Module):
         self.down = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(x, self.up, self.dtype), approximate="tanh")
+        h = mlp_hidden(x, self.up.weight, self.up.bias, self.dtype)
         return _dense(h, self.down, self.dtype)
 
 
@@ -96,20 +137,10 @@ class Attention(nn.Module):
         self.out = nn.Linear(dim, dim)
 
     def forward(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        B, L, D = y.shape
-        H = self.heads
-        Dh = D // H
-
-        def heads(lin):
-            return _dense(y, lin, self.dtype).view(B, L, H, Dh).transpose(1, 2)
-
-        q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        q = q / torch.tensor(math.sqrt(Dh)).to(self.dtype)
-        w = q @ k.transpose(-1, -2)                         # (B, H, L, L)
-        w = w.masked_fill(~mask, torch.finfo(self.dtype).min)
-        w = torch.softmax(w, dim=-1)
-        o = (w @ v).transpose(1, 2).reshape(B, L, D)
-        return _dense(o, self.out, self.dtype)
+        q, k, v = (project_heads(y, lin.weight, lin.bias, self.heads,
+                                 self.dtype)
+                   for lin in (self.query, self.key, self.value))
+        return _dense(attend(q, k, v, mask, self.dtype), self.out, self.dtype)
 
 
 class EncoderBlock(nn.Module):
@@ -124,6 +155,30 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), mask)
         return x + self.mlp(self.ln2(x))
+
+
+def embed(ids: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """Token rows gathered in f32, then cast, plus the positions in
+    ``dtype``."""
+    L = ids.shape[1]
+    return (F.embedding(ids.long(), table).to(dtype)
+            + pos[None, :L].to(dtype))
+
+
+def attention_mask(mask: torch.Tensor) -> torch.Tensor:
+    """flax ``make_attention_mask(mask, mask)``: padded query rows masked
+    too; (B, 1, L, L) bool."""
+    valid = mask > 0
+    return valid[:, None, :, None] & valid[:, None, None, :]
+
+
+def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean pooling over the valid tokens, then the L2 normalization (f32)."""
+    m = mask[..., None].float()
+    pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+    norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))
+    return pooled / norm.clamp_min(1e-6)
 
 
 class DualEncoder(nn.Module):
@@ -143,19 +198,11 @@ class DualEncoder(nn.Module):
 
     @ieee_f32()
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        L = ids.shape[1]
-        x = (self.tok_embed(ids.long()).to(self.dtype)
-             + self.pos_embed[None, :L].to(self.dtype))
-        valid = mask > 0
-        # flax make_attention_mask(mask, mask): padded query rows masked too
-        attn_mask = valid[:, None, :, None] & valid[:, None, None, :]
+        x = embed(ids, self.tok_embed.weight, self.pos_embed, self.dtype)
+        attn_mask = attention_mask(mask)
         for blk in self.blocks:
             x = blk(x, attn_mask)
-        x = self.ln_out(x)
-        m = mask[..., None].float()
-        pooled = (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
-        norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))
-        return pooled / norm.clamp_min(1e-6)
+        return pool(self.ln_out(x), mask)
 
 
 def init_encoder(cfg: DenseConfig, seed: int = 0,

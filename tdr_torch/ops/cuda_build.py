@@ -62,6 +62,10 @@ _SIGNATURES = {
 }
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, link or launch."""
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -73,7 +77,7 @@ def nvcc() -> str:
                  shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _stale() -> bool:
@@ -108,7 +112,7 @@ def build(force: bool = False) -> str:
         if p.returncode != 0:
             failed.append(src)
     if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        raise KernelError(f"nvcc failed for {failed}:\n" + "\n".join(log))
     tmp = LIB_PATH + f".tmp{os.getpid()}"
     link = subprocess.run([exe, *ARCH, "-shared", "-o", tmp,
                            *[o for _, o, _ in procs]],
@@ -116,7 +120,7 @@ def build(force: bool = False) -> str:
                           text=True)
     log.append(f"== link\n{link.stdout}")
     if link.returncode != 0:
-        raise RuntimeError("kernel link failed:\n" + "\n".join(log))
+        raise KernelError("kernel link failed:\n" + "\n".join(log))
     os.replace(tmp, LIB_PATH)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(log)
@@ -142,7 +146,7 @@ def lib() -> ctypes.CDLL:
 
 def check(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise KernelError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
 def current_stream(device) -> int:

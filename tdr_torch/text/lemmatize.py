@@ -1,5 +1,5 @@
-# Copied from tdr/text/lemmatize.py; the Snowball stemmers come from the
-# vendored snowball.py and the porter scheme is not ported.
+# Copied from tdr/text/lemmatize.py; the Snowball and Porter stemmers come
+# from the vendored snowball.py and porter.py.
 """Rule-based English lemmatizer + Snowball stemmer registry.
 
 The winning reference pipeline lemmatizes English with WordNet (default noun
@@ -7,8 +7,8 @@ POS) and Snowball-stems fr/de/es/it (bm25_ranking.ipynb:96-104,
 final_implementation.py:74-84).  WordNet's data files are not available here,
 so English uses WordNet's *morphy* suffix-detachment rules (the algorithmic
 part of the WordNet lemmatizer) without the exception lists; fr/de/es/it use
-NLTK's pure-code Snowball stemmers, vendored in ``snowball.py`` so nltk is
-not needed.
+NLTK's pure-code Snowball stemmers, vendored in ``snowball.py`` (and the
+Porter stemmer in ``porter.py``) so nltk is not needed.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Callable
 
+from tdr_torch.text.porter import PorterStemmer
 from tdr_torch.text.snowball import (
     FrenchStemmer,
     GermanStemmer,
@@ -72,6 +73,11 @@ def _snowball(lang: str):
     return _SNOWBALL[lang]()
 
 
+@lru_cache(maxsize=1)
+def _porter() -> PorterStemmer:
+    return PorterStemmer()
+
+
 def normalizer_for(lang: str, scheme: str = "best") -> Callable[[str], str]:
     """Return the token normalizer for (lang, scheme).
 
@@ -85,8 +91,7 @@ def normalizer_for(lang: str, scheme: str = "best") -> Callable[[str], str]:
     if scheme == "none":
         return lambda w: w
     if scheme == "porter":
-        raise NotImplementedError(
-            "the porter scheme is not ported yet (no vendored PorterStemmer)")
+        return _porter().stem
     if lang == "en":
         return lemmatize_en
     if lang in ("fr", "de", "es", "it"):

@@ -1,10 +1,16 @@
 from tdr_torch.train.contrastive import (
+    ShardedTrainState,
     TrainState,
+    batch_shardings,
     create_train_state,
     contrastive_loss,
     make_train_step,
+    param_shardings,
+    shard_batch,
+    shard_train_state,
     train_dense_retriever,
     train_state_from_optax,
+    unshard_train_state,
 )
 from tdr_torch.train.mining import (
     concat_querysets,
@@ -13,7 +19,13 @@ from tdr_torch.train.mining import (
 )
 
 __all__ = [
+    "ShardedTrainState",
     "TrainState",
+    "batch_shardings",
+    "param_shardings",
+    "shard_batch",
+    "shard_train_state",
+    "unshard_train_state",
     "create_train_state",
     "contrastive_loss",
     "make_train_step",

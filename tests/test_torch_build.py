@@ -235,11 +235,80 @@ def test_snowball_copy_matches_nltk(lang):
     assert [ours(w) for w in words] == [ref.stem(w) for w in words]
 
 
-def test_porter_scheme_not_ported():
-    from tdr_torch.text.lemmatize import normalizer_for
+_PORTER_EN = ("caresses ponies ties caress cats feed agreed plastered bled "
+              "motoring sing conflated troubled sized hopping tanned falling "
+              "hissing fizzed failing filing happy sky relational "
+              "conditional rational valenci hesitanci digitizer conformabli "
+              "radicalli differentli vileli analogousli vietnamization "
+              "predication operator feudalism decisiveness hopefulness "
+              "callousness formaliti sensitiviti sensibiliti triplicate "
+              "formative formalize electriciti electrical hopeful goodness "
+              "revival allowance inference airliner gyroscopic adjustable "
+              "defensible irritant replacement adjustment dependent adoption "
+              "homologou communism activate angulariti homologous effective "
+              "bowdlerize probate rate cease controll roll generalizations "
+              "oscillators dying lying tying skies news innings outing "
+              "canning howe proceed exceed succeed generously").split()
 
-    with pytest.raises(NotImplementedError):
-        normalizer_for("en", "porter")
+
+def _porter_words(lang):
+    """2,000 generated words of ``lang``, the real-text set's words of
+    ``lang`` and, for en, the Porter paper's examples, each also with a few
+    suffixes that reach the algorithm's steps."""
+    import re
+
+    from tdr.data.realtext import REAL_DOCS, REAL_QUERIES
+    from tdr.data.synthetic import _make_word
+
+    rng = np.random.RandomState(13)
+    words = [_make_word(rng, lang) for _ in range(2000)]
+    text = " ".join([t for _, t in REAL_DOCS[lang]]
+                    + [q for q, _ in REAL_QUERIES[lang]])
+    words += sorted(set(re.findall(r"\w+", text)))
+    if lang == "en":
+        words += _PORTER_EN
+    words += [w + s for w in words[:300] for s in
+              ("s", "ies", "ational", "ness", "ing", "ed", "ly", "ement")]
+    words += ["", "a", "Ab", "BY", "ies", "sses", "y", "yy", "eed", "ing"]
+    return words
+
+
+@pytest.mark.parametrize("lang", ["en", "fr", "de", "es", "it", "ar", "ko"])
+def test_porter_normalizer_matches_jax_package(lang):
+    """The vendored Porter stemmer (NLTK_EXTENSIONS, lower-casing) equals
+    ``tdr``'s nltk ``PorterStemmer`` on every word."""
+    from tdr.text.lemmatize import normalizer_for as j_norm
+    from tdr_torch.text.lemmatize import normalizer_for as t_norm
+
+    words = _porter_words(lang)
+    assert len(words) >= 2000
+    ours, ref = t_norm(lang, "porter"), j_norm(lang, "porter")
+    assert [ours(w) for w in words] == [ref(w) for w in words]
+
+
+@pytest.mark.parametrize("source", ["synthetic", "realtext"])
+def test_porter_pipeline_matches_jax_package(source):
+    """``preprocess_texts(..., pipeline="porter")`` gives ``tdr``'s token
+    lists on a synthetic corpus of the seven languages and on the real-text
+    set (documents and queries)."""
+    from tdr.text import preprocess_texts as j_pre
+    from tdr_torch.text import preprocess_texts as t_pre
+
+    if source == "synthetic":
+        from tdr.data import SyntheticSpec, synthetic_corpus
+
+        corpus, queries = synthetic_corpus(SyntheticSpec(
+            n_docs=400, n_queries=80, seed=5))
+        texts = list(corpus.texts) + list(queries.queries)
+        langs = list(corpus.langs) + list(queries.langs)
+    else:
+        from tdr.data.realtext import real_eval_corpus
+
+        docs, _, dlangs, qs, qlangs, _ = real_eval_corpus()
+        texts, langs = docs + qs, dlangs + qlangs
+    ours = t_pre(texts, langs, pipeline="porter")
+    assert ours == j_pre(texts, langs, pipeline="porter")
+    assert ours != t_pre(texts, langs, pipeline="best")
 
 
 @pytest.mark.parametrize("lang", ["en", "de", "ko"])

@@ -1,0 +1,507 @@
+"""The port's sharded train step against ``tdr``'s, on CPU.
+
+``tdr`` runs its jitted step on ``tests/conftest.py``'s 8 virtual devices
+(``make_mesh(data=4, model=2)`` and ``data=2, model=2``), the port the
+same mesh shapes over ``make_mesh(..., devices=["cpu"] * S)``.  Both start
+from one flax init carried by ``train_state_from_optax`` (vocab 300, dim
+64, depth 2, 4 heads, 16 tokens; heads and the MLP's 256 hidden units
+split over 2 model shards) and take the same seeded batches of 8.
+
+Tolerances are ``tests/test_torch_train.py``'s for the unsharded step:
+
+* f32: the loss within rtol 1e-6, every gradient within 1e-5 of its leaf's
+  largest entry, the params after 3 steps within 3e-5 beyond what Adam's
+  first step makes of the gradient difference (``chip_smoke.py`` 11c's
+  rule: one entry of ``blocks.1.mlp.up.weight`` with a first gradient of
+  1.9e-7 here, 1.1e-7 in ``tdr``, ends 3.5e-5 apart); the attention key
+  biases, whose true gradient is zero, held to rounding noise and, after
+  Adam, to Adam's bound;
+* bf16: the loss within rtol 1e-2, each gradient at a cosine of at least
+  0.999 and a norm within 2%, after 3 steps 99% of the entries within
+  lr / 4 and every entry within Adam's bound.
+
+The loss is the global InfoNCE over the whole batch: the (B, B) logits
+take every data shard's positives (a per-shard loss fails these checks).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import flax  # noqa: E402
+import flax.linen as nn  # noqa: E402
+import jax  # noqa: E402
+
+from tdr.ckpt import registry as jreg  # noqa: E402
+from tdr.data import SyntheticSpec, synthetic_corpus  # noqa: E402
+from tdr.models.encoder import init_encoder as jinit_encoder  # noqa: E402
+from tdr.parallel import make_mesh as jmake_mesh  # noqa: E402
+from tdr.train import contrastive as jc  # noqa: E402
+from tdr.train.mining import make_pseudo_queries  # noqa: E402
+from tdr.utils.config import DenseConfig as JDenseConfig  # noqa: E402
+from tdr_torch.ckpt import load_train_state, save_train_state  # noqa: E402
+from tdr_torch.data.loaders import QuerySet  # noqa: E402
+from tdr_torch.models import encoder as tenc  # noqa: E402
+from tdr_torch.parallel import train as ttp  # noqa: E402
+from tdr_torch.parallel.mesh import make_mesh  # noqa: E402
+from tdr_torch.train import contrastive as tc  # noqa: E402
+from tdr_torch.utils.config import DenseConfig  # noqa: E402
+
+SMALL = dict(vocab_size=300, dim=64, depth=2, heads=4, max_len=16)
+LR = 1e-3
+ADAM_STEP = 1.004 * LR
+MESHES = [(4, 2), (2, 2)]
+
+
+def _unbox(tree):
+    return jax.tree_util.tree_map(np.asarray, flax.linen.meta.unbox(tree))
+
+
+def _batch(seed, B=8, Nn=2, L=16, V=300, repeat=None):
+    r = np.random.RandomState(seed)
+    out = {}
+    for k, shp in (("q", (B, L)), ("p", (B, L)), ("n", (B, Nn, L))):
+        ids = r.randint(0, V, size=shp).astype(np.int32)
+        if repeat is not None:
+            ids[..., ::2] = repeat
+        lens = r.randint(2, L + 1, size=shp[:-1])
+        mask = (np.arange(L) < lens[..., None]).astype(np.float32)
+        out[f"{k}_ids"], out[f"{k}_mask"] = ids * mask.astype(np.int32), mask
+    return out
+
+
+def _mesh(data, model):
+    return make_mesh(data, model, devices=["cpu"] * (data * model))
+
+
+def _carried(dtype, seed=0):
+    model, state, tx = jc.create_train_state(
+        JDenseConfig(**SMALL, dtype=dtype), lr=LR, seed=seed)
+    ts = tc.train_state_from_optax(
+        _unbox(state.params), _unbox(state.opt_state), 0,
+        DenseConfig(**SMALL, dtype=dtype), LR, device="cpu")
+    return model, tx, state, ts
+
+
+def _port_sharded_grads(ss, batch):
+    """The sharded step's reduced gradients, joined, by state-dict name."""
+    loss, _ = tc.sharded_batch_loss(ss, tc.shard_batch(ss.mesh, batch))
+    for opts in ss.optimizers:
+        for opt in opts:
+            opt.zero_grad(set_to_none=True)
+    loss.backward()
+    ttp.reduce_grads(ss.mesh, ss.params, ss.specs)
+    row = ss.params[0]
+    return loss.item(), {
+        k: ttp.join_slices([p[k].grad for p in row], ss.specs[k]).numpy()
+        for k in ss.specs}
+
+
+def _jax_sharded_grads(model, js, mesh, batch):
+    def loss_fn(params, b):
+        q = model.apply({"params": params}, b["q_ids"], b["q_mask"])
+        p = model.apply({"params": params}, b["p_ids"], b["p_mask"])
+        B, Nn, L = b["n_ids"].shape
+        n = model.apply({"params": params}, b["n_ids"].reshape(B * Nn, L),
+                        b["n_mask"].reshape(B * Nn, L)).reshape(B, Nn, -1)
+        return jc.contrastive_loss(q, p, n)[0]
+
+    loss, g = jax.jit(jax.value_and_grad(loss_fn))(
+        js.params, jc.shard_batch(mesh, batch))
+    return float(loss), {k: v.numpy() for k, v in
+                         tenc.encoder_state_from_flax(_unbox(g)).items()}
+
+
+def _is_key_bias(name):
+    return name.endswith("attn.key.bias")
+
+
+def _hold_grads(tg, jg, dtype):
+    top = max(np.abs(g).max() for g in jg.values())
+    assert tg.keys() == jg.keys()
+    for name, g in tg.items():
+        r = jg[name]
+        if _is_key_bias(name):
+            tol = 1e-6 if dtype == "float32" else 1e-2
+            assert np.abs(g).max() <= tol * top
+            assert np.abs(r).max() <= tol * top
+        elif dtype == "float32":
+            np.testing.assert_allclose(g, r, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max(),
+                                       err_msg=name)
+        else:
+            cos = (g * r).sum() / np.linalg.norm(g) / np.linalg.norm(r)
+            assert cos >= 0.999, (name, cos)
+            assert abs(np.linalg.norm(g) / np.linalg.norm(r) - 1) <= 0.02, name
+
+
+def _adam_amplification(tg, jg):
+    """What Adam's first step makes of a gradient difference: it moves a
+    param by lr * g / (|g| + eps), so where |g| is near eps (1e-8) two
+    gradients well within 1e-5 of their leaf's largest entry move it by up
+    to 2 lr apart (``chip_smoke.py`` 11c's rule)."""
+    return {k: LR * np.abs(g / (np.abs(g) + 1e-8)
+                           - jg[k] / (np.abs(jg[k]) + 1e-8))
+            for k, g in tg.items()}
+
+
+def _hold_params(ours, theirs, dtype, steps=3, amp=None):
+    rest = []
+    for name, v in ours.items():
+        d = np.abs(v.detach().numpy() - theirs[name].detach().numpy())
+        assert d.max() <= 2 * steps * ADAM_STEP, name
+        if _is_key_bias(name):
+            continue
+        rest.append(d.reshape(-1))
+        if dtype == "float32":
+            excess = d - (amp[name] if amp is not None else 0.0)
+            assert excess.max() <= 3e-5, (name, d.max(), excess.max())
+    if dtype == "bfloat16":
+        assert np.quantile(np.concatenate(rest), 0.99) <= LR / 4
+
+
+def _joined_params(ss):
+    return tc.unshard_train_state(ss).model.state_dict()
+
+
+# -- the layout ---------------------------------------------------------------
+
+def _flax_spec_in_torch_layout(path, spec, ndim):
+    """A flax leaf's partition spec as the spec of its torch tensor
+    (``encoder_state_from_flax``'s reshapes and transposes)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    leaf, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    if parent in ("query", "key", "value"):
+        # kernel (D, H, Dh) -> weight (H * Dh, D); bias (H, Dh) -> (H * Dh,)
+        return (spec[1], spec[0]) if leaf == "kernel" else (spec[0],)
+    if parent == "out" and leaf == "kernel":
+        return (spec[2], spec[0])             # (H, Dh, D) -> (D, H * Dh)
+    if leaf == "kernel":
+        return (spec[1], spec[0])             # (in, out) -> (out, in)
+    return spec
+
+
+def test_param_shardings_match_flax_partition_specs():
+    _, params = jinit_encoder(JDenseConfig(**SMALL), 0)
+    specs = nn.get_partition_spec(params)
+    shapes = _unbox(params)
+    want = {}
+    for (path, spec), (_, arr) in zip(
+            jax.tree_util.tree_flatten_with_path(
+                specs, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))[0],
+            jax.tree_util.tree_flatten_with_path(shapes)[0]):
+        keys = tuple(p.key for p in path)
+        want[keys] = _flax_spec_in_torch_layout(keys, spec, arr.ndim)
+    # the torch name of each flax leaf, through the converter itself
+    names = {}
+    for keys in want:
+        tree = jax.tree_util.tree_map(np.zeros_like, shapes)
+        node = tree
+        for k in keys[:-1]:
+            node = node[k]
+        node[keys[-1]] = np.ones_like(node[keys[-1]])
+        hits = [n for n, v in tenc.encoder_state_from_flax(tree).items()
+                if v.abs().sum() > 0]
+        assert len(hits) == 1, keys
+        names[hits[0]] = keys
+    model = tenc.DualEncoder(DenseConfig(**SMALL))
+    got = tc.param_shardings(_mesh(2, 2), model)
+    assert got.keys() == names.keys()
+    for name, keys in names.items():
+        w = want[keys]
+        g = got[name]
+        assert len(g) == model.state_dict()[name].ndim, name
+        assert g == tuple(w), (name, g, w)
+    # q, k, v, out, up (kernel and bias), down a block
+    assert sum("model" in s for s in got.values()) == 7 * SMALL["depth"]
+    with pytest.raises(ValueError, match="model shards"):
+        tc.param_shardings(_mesh(1, 3), model)
+
+
+@pytest.mark.parametrize("data,model", MESHES)
+def test_moments_laid_out_like_params_and_replicas_bit_equal(data, model):
+    _, _, _, ts = _carried("float32", seed=1)
+    ss = tc.shard_train_state(_mesh(data, model), ts)
+    step = tc.make_train_step()
+    for i in range(2):
+        ss, _ = step(ss, _batch(40 + i))
+    full = _joined_params(ss)
+    for d in range(data):
+        for m in range(model):
+            params, opt = ss.params[d][m], ss.optimizers[d][m]
+            for name, p in params.items():
+                spec = ss.specs[name]
+                want = ttp.shard_slice(full[name], spec, m, model)
+                assert p.shape == want.shape, name
+                st = opt.state[p]
+                assert st["exp_avg"].shape == p.shape == st["exp_avg_sq"].shape
+                assert st["step"].item() == 2.0
+                # data replicas of a slice are bit-equal, moments too
+                ref, ref_st = ss.params[0][m][name], ss.optimizers[0][m].state[
+                    ss.params[0][m][name]]
+                assert torch.equal(p, ref), (d, m, name)
+                assert torch.equal(st["exp_avg"], ref_st["exp_avg"])
+                assert torch.equal(st["exp_avg_sq"], ref_st["exp_avg_sq"])
+    # per-device bytes: the layout function, less than replicating
+    cfg = DenseConfig(**SMALL)
+    assert ss.per_device_bytes() == ttp.train_state_layout(cfg, ss.mesh)
+    whole = 3 * 4 * sum(p.numel() for p in ts.model.parameters())
+    assert ss.per_device_bytes()["cpu"] < data * model * whole
+    assert ss.step == 2
+
+
+def test_shard_batch_splits_over_data_and_raises_on_uneven_batch():
+    mesh = _mesh(4, 2)
+    b = _batch(0)
+    specs = tc.batch_shardings(mesh, b)
+    assert specs["q_ids"] == ("data", None)
+    assert specs["n_ids"] == ("data", None, None)
+    sb = tc.shard_batch(mesh, b)
+    assert len(sb) == 4 and all(len(r) == 2 for r in sb)
+    for d in range(4):
+        for m in range(2):
+            np.testing.assert_array_equal(sb[d][m]["n_ids"].numpy(),
+                                          b["n_ids"][2 * d:2 * d + 2])
+    with pytest.raises(ValueError, match="does not split"):
+        tc.shard_batch(mesh, _batch(0, B=6))
+
+
+# -- the step against tdr's on 8 virtual devices ---------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("data,model", MESHES)
+def test_sharded_step_matches_jax(dtype, data, model):
+    jmodel, tx, js, ts = _carried(dtype)
+    jmesh = jmake_mesh(data=data, model=model)
+    js = jc.shard_train_state(jmesh, js)
+    ss = tc.shard_train_state(_mesh(data, model), ts)
+    jloss, jg = _jax_sharded_grads(jmodel, js, jmesh, _batch(10))
+    tloss, tg = _port_sharded_grads(ss, _batch(10))
+    np.testing.assert_allclose(tloss, jloss,
+                               rtol=1e-6 if dtype == "float32" else 1e-2)
+    _hold_grads(tg, jg, dtype)
+
+    ss = tc.shard_train_state(_mesh(data, model), ts)
+    step, tstep = jc.make_train_step(jmodel, tx), tc.make_train_step()
+    for i in range(3):
+        b = _batch(10 + i)
+        js, jm = step(js, jc.shard_batch(jmesh, b))
+        ss, tm = tstep(ss, b)
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                   rtol=1e-5 if dtype == "float32" else 1e-2)
+    assert ss.step == int(js.step) == 3
+    _hold_params(_joined_params(ss),
+                 tenc.encoder_state_from_flax(_unbox(js.params)), dtype,
+                 amp=_adam_amplification(tg, jg))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("data,model", [(1, 1), (2, 1), (1, 2)] + MESHES)
+def test_sharded_step_matches_port_unsharded(dtype, data, model):
+    """The sharded step against the port's own single-device step from
+    one state; a 1 x 1 mesh is that step bit for bit."""
+    _, _, _, ts = _carried(dtype, seed=2)
+    _, _, _, single = _carried(dtype, seed=2)
+    ss = tc.shard_train_state(_mesh(data, model), ts)
+    step = tc.make_train_step()
+    for i in range(3):
+        b = _batch(20 + i)
+        single, sm = step(single, b)
+        ss, tm = step(ss, b)
+        if (data, model) == (1, 1):
+            assert tm["loss"].item() == sm["loss"].item()
+        else:
+            np.testing.assert_allclose(
+                tm["loss"].item(), sm["loss"].item(),
+                rtol=1e-6 if dtype == "float32" else 1e-2)
+    ours = _joined_params(ss)
+    theirs = single.model.state_dict()
+    if (data, model) == (1, 1):
+        for name, v in ours.items():
+            assert torch.equal(v, theirs[name]), name
+    _hold_params(ours, theirs, dtype)
+
+
+def test_embedding_gradient_bound_holds_at_data_2(monkeypatch):
+    """C5 is not widened by the sharded step: at data=2 (and model=2) the
+    repeated id's gradient, summed over the shards that gathered it, is
+    within the f32 summation bound n 2**-24 sum|g| of the exact sum of
+    every shard's bf16 cotangents (n the id's uses in all shards)."""
+    captured = []
+    orig = torch.nn.functional.embedding
+
+    def embedding(ids, table, *a, **k):
+        out = orig(ids, table, *a, **k)
+        if out.requires_grad:
+            out.register_hook(lambda g, ids=ids: captured.append(
+                (ids.numpy().copy(), g.numpy().astype(np.float64))))
+        return out
+
+    monkeypatch.setattr(torch.nn.functional, "embedding", embedding)
+    _, _, _, ts = _carried("bfloat16", seed=1)
+    ss = tc.shard_train_state(_mesh(2, 2), ts)
+    _, tg = _port_sharded_grads(ss, _batch(5, repeat=7))
+    g = tg["tok_embed.weight"]
+    assert len(captured) == 4                # one gather a shard
+    V, D = g.shape
+    exact, mag = np.zeros((V, D)), np.zeros((V, D))
+    n = np.zeros(V)
+    for ids, cot in captured:
+        flat = ids.reshape(-1)
+        np.add.at(exact, flat, cot.reshape(-1, D))
+        np.add.at(mag, flat, np.abs(cot.reshape(-1, D)))
+        n += np.bincount(flat, minlength=V)
+    assert n[7] > 200
+    assert np.all(np.abs(g - exact) <= n[:, None] * 2.0 ** -24 * mag)
+
+
+# -- the loop and checkpoints ----------------------------------------------------
+
+def _world():
+    corpus, queries = synthetic_corpus(SyntheticSpec(
+        n_docs=120, n_queries=30, seed=3, ref_proportions=False,
+        langs=("en", "de")))
+    pqs = make_pseudo_queries(corpus, 40, seed=2)
+    qs = QuerySet(pqs.query_ids, pqs.queries, pqs.langs, pqs.positive_docs,
+                  [[corpus.docids[(i * 7) % 120], "missing-doc"][: i % 3]
+                   for i in range(len(pqs.queries))])
+    return corpus, qs
+
+
+def test_loss_curve_with_mesh_matches_jax(monkeypatch):
+    """``train_dense_retriever(mesh=...)`` in both packages from the same
+    carried init over the same batches (f32, data 4 x model 2):
+    ``tests/test_torch_train.py``'s curve tolerances."""
+    corpus, qs = _world()
+    model, tx, js, ts = _carried("float32", seed=4)
+    monkeypatch.setattr(jc, "create_train_state",
+                        lambda cfg, lr, seed: (model, js, tx))
+    monkeypatch.setattr(tc, "create_train_state",
+                        lambda cfg, lr, seed, device: ts)
+    cfg = dict(SMALL, dtype="float32")
+    _, jstate, jlast = jc.train_dense_retriever(
+        corpus, qs, JDenseConfig(**cfg), mesh=jmake_mesh(data=4, model=2),
+        epochs=3, batch_size=8, lr=LR)
+    tmodel, tstate, tlast = tc.train_dense_retriever(
+        corpus, qs, DenseConfig(**cfg), mesh=_mesh(4, 2), epochs=3,
+        batch_size=8, lr=LR, device="cpu")
+    assert isinstance(tstate, tc.ShardedTrainState) and tstate.step == 15
+    assert isinstance(tmodel, tenc.DualEncoder)
+    for name, v in tmodel.state_dict().items():
+        assert torch.equal(v, _joined_params(tstate)[name]), name
+    assert len(tlast["loss_curve"]) == len(jlast["loss_curve"]) == 3
+    np.testing.assert_allclose(tlast["loss_curve"], jlast["loss_curve"],
+                               atol=2e-4)
+    np.testing.assert_allclose(tlast["loss"], jlast["loss"], rtol=1e-4)
+    assert tlast["accuracy"] == jlast["accuracy"]
+
+
+def test_sharded_checkpoints_both_ways(tmp_path):
+    """``tdr``'s sharded state saved after 2 steps resumes in the port's
+    sharded step (the third step within the f32 tolerances); the port's
+    sharded save loads in ``tdr`` leaf for leaf; in the port 2 sharded
+    steps + save + load + 2 equal 4 straight bit for bit."""
+    cfg = dict(SMALL, dtype="float32")
+    jmodel, js, tx = jc.create_train_state(JDenseConfig(**cfg), lr=LR)
+    jmesh = jmake_mesh(data=2, model=2)
+    js = jc.shard_train_state(jmesh, js)
+    step = jc.make_train_step(jmodel, tx)
+    for s in (0, 1):
+        js, _ = step(js, jc.shard_batch(jmesh, _batch(s)))
+    jreg.save_train_state(str(tmp_path / "jax"), js)
+
+    def fresh(seed=9):
+        return tc.shard_train_state(_mesh(2, 2), tc.create_train_state(
+            DenseConfig(**cfg), lr=LR, seed=seed, device="cpu"))
+
+    ss = load_train_state(str(tmp_path / "jax"), fresh())
+    assert isinstance(ss, tc.ShardedTrainState) and ss.step == 2
+    for name, v in tenc.encoder_state_from_flax(_unbox(js.params)).items():
+        assert torch.equal(_joined_params(ss)[name], v), name
+    js, _ = step(js, jc.shard_batch(jmesh, _batch(2)))
+    ss, _ = tc.make_train_step()(ss, _batch(2))
+    _hold_params(_joined_params(ss),
+                 tenc.encoder_state_from_flax(_unbox(js.params)), "float32",
+                 steps=1)
+
+    tstep = tc.make_train_step()
+    straight = fresh(seed=0)
+    for s in range(4):
+        straight, _ = tstep(straight, _batch(s))
+    half = fresh(seed=0)
+    for s in range(2):
+        half, _ = tstep(half, _batch(s))
+    save_train_state(str(tmp_path / "port"), half)
+    _, template, _ = jc.create_train_state(JDenseConfig(**cfg), lr=LR)
+    restored = jreg.load_train_state(str(tmp_path / "port"), template)
+    adam = _unbox(restored.opt_state)[0]
+    whole = tc.unshard_train_state(half)
+    count, mu, nu = tc.adam_moments(whole)
+    assert int(restored.step) == 2 and int(adam.count) == count == 2
+    for ours, theirs in ((whole.model.state_dict(), restored.params),
+                         (mu, adam.mu), (nu, adam.nu)):
+        theirs = tenc.encoder_state_from_flax(_unbox(theirs))
+        for name in ours:
+            assert torch.equal(ours[name], theirs[name]), name
+    resumed = load_train_state(str(tmp_path / "port"), fresh(seed=5))
+    for s in (2, 3):
+        resumed, _ = tstep(resumed, _batch(s))
+    assert resumed.step == straight.step == 4
+    for d in range(2):
+        for m in range(2):
+            a, b = straight.params[d][m], resumed.params[d][m]
+            oa, ob = straight.optimizers[d][m], resumed.optimizers[d][m]
+            for name in a:
+                assert torch.equal(a[name], b[name]), (d, m, name)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    assert torch.equal(oa.state[a[name]][key],
+                                       ob.state[b[name]][key]), (name, key)
+
+
+def test_twenty_step_gap_at_bf16_is_tdrs():
+    """Sharded against unsharded over 20 bf16 steps (data 2 x model 2), in
+    each package from one carried init: the port's gap is of the size of
+    ``tdr``'s and within the bounds ``chip_smoke.py`` 13d holds the card
+    to: the loss at every step within rtol 1e-2, the 99th percentile of
+    the params' differences within lr, every entry within Adam's bound.
+    ``-s`` prints both packages' gaps (on this host: loss 2.6e-3 in
+    ``tdr``, 4.0e-3 in the port; 99th percentile 4.3e-4 and 3.1e-4)."""
+    import jax.numpy as jnp
+
+    n = 20
+    jmodel, tx, js, ts = _carried("bfloat16")
+    _, _, js2, ts2 = _carried("bfloat16")
+    jmesh = jmake_mesh(data=2, model=2)
+    jss = jc.shard_train_state(jmesh, js2)
+    ss = tc.shard_train_state(_mesh(2, 2), ts2)
+    step, tstep = jc.make_train_step(jmodel, tx), tc.make_train_step()
+    losses = {k: [] for k in ("tdr", "tdr sharded", "port", "port sharded")}
+    for i in range(n):
+        b = _batch(100 + i)
+        js, m = step(js, {k: jnp.asarray(v) for k, v in b.items()})
+        losses["tdr"].append(float(m["loss"]))
+        jss, m = step(jss, jc.shard_batch(jmesh, b))
+        losses["tdr sharded"].append(float(m["loss"]))
+        ts, m = tstep(ts, b)
+        losses["port"].append(m["loss"].item())
+        ss, m = tstep(ss, b)
+        losses["port sharded"].append(m["loss"].item())
+    gaps = {}
+    for pkg, a, b in (("tdr", tenc.encoder_state_from_flax(_unbox(jss.params)),
+                       tenc.encoder_state_from_flax(_unbox(js.params))),
+                      ("port", _joined_params(ss), ts.model.state_dict())):
+        one = np.array(losses[pkg])
+        loss_gap = np.max(np.abs(np.array(losses[f"{pkg} sharded"]) - one)
+                          / one)
+        d = np.concatenate([np.abs(a[k].numpy() - b[k].numpy()).ravel()
+                            for k in a if not _is_key_bias(k)])
+        gaps[pkg] = (loss_gap, np.quantile(d, 0.99), d.max())
+        print(f"{pkg}: sharded vs unsharded over {n} bf16 steps: loss "
+              f"{loss_gap:.3g} relative, params 99th percentile "
+              f"{gaps[pkg][1]:.3g}, max {gaps[pkg][2]:.3g}")
+    for pkg in ("tdr", "port"):
+        loss_gap, q99, worst = gaps[pkg]
+        assert loss_gap <= 1e-2 and q99 <= LR, (pkg, gaps[pkg])
+        assert worst <= 2 * n * ADAM_STEP, (pkg, gaps[pkg])
