@@ -2599,16 +2599,24 @@ class call_clock:
 
 def same_docs(got, docs, scores, rtol=1e-5, atol=1e-4):
     """A list without scores (a submission row, a served answer) against
-    the router's lists: equal, except that a rank may swap with another of
-    equal score within the tolerance."""
+    the router's list, which runs at least one rank deeper: equal, except
+    that a doc may stand at a rank whose reference score it ties within the
+    tolerance.  The deeper rank lets a swap at the last rank see its
+    partner; a doc the reference does not list may tie only where the tie
+    runs to the reference's end."""
     import numpy as np
 
-    if len(got) != len(docs):
+    if len(docs) <= len(got) or len(scores) != len(docs):
         return False
     s = np.asarray(scores, np.float64)
-    return all(a == b or np.isclose(s, s[j], rtol=rtol, atol=atol).sum() > 1
-               or j == len(docs) - 1 for j, (a, b) in enumerate(zip(got,
-                                                                   docs)))
+    pos = {d: i for i, d in enumerate(docs)}
+    for j, (a, b) in enumerate(zip(got, docs)):
+        if a == b:
+            continue
+        tie = np.isclose(s, s[j], rtol=rtol, atol=atol)
+        if not (tie[pos[a]] if a in pos else tie[-1]):
+            return False
+    return True
 
 
 def dir_bytes(path):
@@ -2616,10 +2624,11 @@ def dir_bytes(path):
                for d, _, fs in os.walk(path) for f in fs)
 
 
-def cli_phase(corpus, queries, full_docs, full_scores, tmp):
+def cli_phase(corpus, queries, deep_docs, deep_scores, tmp):
     """13a: phase 2's corpus and queries in ``synth``'s files, then the
     CLI's ``build`` (4 GiB head budget, bf16 heads), ``eval``, ``retrieve``
-    and ``validate`` in this process.  Returns (launches in ``eval``, the
+    and ``validate`` in this process; the submission's rows are held to the
+    router's top-11 lists.  Returns (launches in ``eval``, the
     registry, the queries file)."""
     import tdr_torch.ckpt as ckpt
     from tdr_torch.eval import read_submission
@@ -2658,11 +2667,11 @@ def cli_phase(corpus, queries, full_docs, full_scores, tmp):
     need(rc == 0, f"13a: retrieve exited {rc}")
     ids, rows = read_submission(sub)
     need(ids == list(queries.query_ids), "13a: submission ids out of order")
-    bad = [q for q in range(nq) if not same_docs(rows[q], full_docs[q],
-                                                   full_scores[q])]
+    bad = [q for q in range(nq) if not same_docs(rows[q], deep_docs[q],
+                                                   deep_scores[q])]
     need(not bad, f"13a: submission rows differ from phase 4's lists beyond "
                   f"near-ties at queries {bad[:10]}")
-    swapped = sum(r != list(d) for r, d in zip(rows, full_docs))
+    swapped = sum(r != list(d[:10]) for r, d in zip(rows, deep_docs))
     rc, out = run_cli(["validate", "--submission", sub])
     need(rc == 0 and out.strip() == "OK", f"13a: validate: {rc} {out!r}")
     say(f"[13a cli] files written in {write_s:.1f} s; build {build_s:.1f} s "
@@ -2748,7 +2757,7 @@ class Server:
             fail("serve did not exit within its timeout after end of input")
 
 
-def serve_phase(reg, queries, full_docs, full_scores, router):
+def serve_phase(reg, queries, deep_docs, deep_scores, router):
     """13b: the registry served by ``serve`` in a subprocess: 64 single
     requests over the seven languages, a burst of 256, a malformed line and
     a request with no ``lang``, answers held to the in-process router;
@@ -2779,19 +2788,19 @@ def serve_phase(reg, queries, full_docs, full_scores, router):
                   "k": 10})
         ans = srv.answers(1)[0]
         lat.append(time.perf_counter() - t0)
-        held(i, ans, full_docs[i], full_scores[i])
+        held(i, ans, deep_docs[i], deep_scores[i])
     t0 = time.perf_counter()
     srv.send(*[{"query": queries.queries[i], "lang": queries.langs[i]}
                for i in burst])
     got = srv.answers(len(burst))
     burst_s = time.perf_counter() - t0
     for i, ans in zip(burst, got):
-        held(i, ans, full_docs[i], full_scores[i])
+        held(i, ans, deep_docs[i], deep_scores[i])
     j = singles[-1]
     srv.send("this is not json", {"query": queries.queries[j]})
     bad, nolang = srv.answers(2)
     need(set(bad) == {"error"}, f"13b: malformed line answered {bad}")
-    d, sc = router.retrieve_with_scores([queries.queries[j]], [None], k=10)
+    d, sc = router.retrieve_with_scores([queries.queries[j]], [None], k=11)
     held(j, nolang, d[0], sc[0])
     rc = srv.close()
     need(rc == 0, f"13b: serve exited {rc}")
@@ -3331,10 +3340,14 @@ def main() -> None:
 
     t13 = time.perf_counter()
     tmp13 = tempfile.mkdtemp(prefix="tdr_cli_")
+    # phase 4's lists one rank deeper: 13a-b's answers carry no scores of
+    # their own to hold a swap at rank 10 to
+    deep_docs, deep_scores = router.retrieve_with_scores(
+        queries.queries, queries.langs, k=11)
     try:
-        paths["cli_eval"], reg, q_path = cli_phase(corpus, queries, full_docs,
-                                                   full_scores, tmp13)
-        serve_phase(reg, queries, full_docs, full_scores, router)
+        paths["cli_eval"], reg, q_path = cli_phase(corpus, queries, deep_docs,
+                                                   deep_scores, tmp13)
+        serve_phase(reg, queries, deep_docs, deep_scores, router)
         shutil.rmtree(reg, ignore_errors=True)
         k3_cli = cli_dense_phase(dense, queries, q_path, tmp13)
     finally:

@@ -28,7 +28,7 @@ across, so the two forwards can be compared on the same weights.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +40,8 @@ from tdr_torch.utils.config import DenseConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
 
 _LN_EPS = 1e-6
+
+Params = Mapping[str, torch.Tensor]
 
 
 def _dtype(cfg: DenseConfig) -> torch.dtype:
@@ -113,48 +115,35 @@ class LayerNorm(nn.Module):
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    """The MLP's parameters (``encode_shards`` runs it)."""
+
+    def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.dtype = dtype
         self.up = nn.Linear(dim, hidden)
         self.down = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = mlp_hidden(x, self.up.weight, self.up.bias, self.dtype)
-        return _dense(h, self.down, self.dtype)
-
 
 class Attention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` (self-attention, no dropout)."""
+    """flax ``MultiHeadDotProductAttention``'s parameters (self-attention,
+    no dropout; ``encode_shards`` runs it)."""
 
-    def __init__(self, dim: int, heads: int, dtype: torch.dtype):
+    def __init__(self, dim: int):
         super().__init__()
-        self.heads = heads
-        self.dtype = dtype
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        q, k, v = (project_heads(y, lin.weight, lin.bias, self.heads,
-                                 self.dtype)
-                   for lin in (self.query, self.key, self.value))
-        return _dense(attend(q, k, v, mask, self.dtype), self.out, self.dtype)
-
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_hidden: int,
-                 dtype: torch.dtype):
+    """One pre-LN block's parameters (``encode_shards`` runs it)."""
+
+    def __init__(self, dim: int, mlp_hidden: int):
         super().__init__()
         self.ln1 = LayerNorm(dim)
-        self.attn = Attention(dim, heads, dtype)
+        self.attn = Attention(dim)
         self.ln2 = LayerNorm(dim)
-        self.mlp = MlpBlock(dim, mlp_hidden, dtype)
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.mlp(self.ln2(x))
+        self.mlp = MlpBlock(dim, mlp_hidden)
 
 
 def embed(ids: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
@@ -181,28 +170,74 @@ def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return pooled / norm.clamp_min(1e-6)
 
 
+def encode_shards(shards: Sequence[Params], cfg: DenseConfig,
+                  ids: Sequence[torch.Tensor],
+                  mask: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The encoder's forward over model shards of its weights, (B, dim) f32
+    on shard 0's device.  ``shards[m]`` maps state-dict names to model
+    shard m's parameters: its heads of the q/k/v/out projections and its
+    slice of the MLP's hidden axis (``parallel.train.PARAM_SPLITS``), the
+    rest whole; ``ids[m]`` and ``mask[m]`` are its copy of the rows.  Each
+    shard carries its own residual stream; the partial products of the
+    attention's output projection and of ``mlp.down`` are summed over the
+    shards (Megatron-style).  With one shard this is ``DualEncoder``'s
+    forward."""
+    # imported here: tdr_torch.parallel's __init__ imports this package
+    from tdr_torch.parallel.mesh import _copy, psum
+
+    def residual(x, parts, bias):
+        total = psum(parts, x[0].device)
+        return [xm + (_copy(total, xm.device) + p[bias].to(dtype))
+                for xm, p in zip(x, shards)]
+
+    n = len(shards)
+    dtype = _dtype(cfg)
+    heads = cfg.heads // n
+    x = [embed(i, p["tok_embed.weight"], p["pos_embed"], dtype)
+         for i, p in zip(ids, shards)]
+    masks = [attention_mask(mk) for mk in mask]
+    for b in range(cfg.depth):
+        pre = f"blocks.{b}."
+        parts = []
+        for m, p in enumerate(shards):
+            y = layer_norm(x[m], p[pre + "ln1.weight"], p[pre + "ln1.bias"])
+            # q/k/v biases are replicated: each shard adds its heads' part
+            q, k, v = (project_heads(
+                y, p[f"{pre}attn.{w}.weight"],
+                torch.chunk(p[f"{pre}attn.{w}.bias"], n)[m], heads, dtype)
+                for w in ("query", "key", "value"))
+            parts.append(product(attend(q, k, v, masks[m], dtype),
+                                 p[pre + "attn.out.weight"], dtype))
+        x = residual(x, parts, pre + "attn.out.bias")
+        parts = []
+        for m, p in enumerate(shards):
+            y = layer_norm(x[m], p[pre + "ln2.weight"], p[pre + "ln2.bias"])
+            h = mlp_hidden(y, p[pre + "mlp.up.weight"], p[pre + "mlp.up.bias"],
+                           dtype)
+            parts.append(product(h, p[pre + "mlp.down.weight"], dtype))
+        x = residual(x, parts, pre + "mlp.down.bias")
+    p = shards[0]
+    return pool(layer_norm(x[0], p["ln_out.weight"], p["ln_out.bias"]),
+                mask[0])
+
+
 class DualEncoder(nn.Module):
     """Shared-weight text encoder producing L2-normalized embeddings."""
 
     def __init__(self, cfg: DenseConfig):
         super().__init__()
         self.cfg = cfg
-        self.dtype = _dtype(cfg)
         self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.dim)
         self.pos_embed = nn.Parameter(torch.zeros(cfg.max_len, cfg.dim))
         hidden = int(cfg.dim * cfg.mlp_ratio)
         self.blocks = nn.ModuleList(
-            EncoderBlock(cfg.dim, cfg.heads, hidden, self.dtype)
-            for _ in range(cfg.depth))
+            EncoderBlock(cfg.dim, hidden) for _ in range(cfg.depth))
         self.ln_out = LayerNorm(cfg.dim)
 
     @ieee_f32()
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = embed(ids, self.tok_embed.weight, self.pos_embed, self.dtype)
-        attn_mask = attention_mask(mask)
-        for blk in self.blocks:
-            x = blk(x, attn_mask)
-        return pool(self.ln_out(x), mask)
+        return encode_shards([dict(self.named_parameters())], self.cfg,
+                             [ids], [mask])
 
 
 def init_encoder(cfg: DenseConfig, seed: int = 0,

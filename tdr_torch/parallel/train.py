@@ -1,5 +1,5 @@
-"""Tensor-parallel blocks of the sharded train step (``tdr``'s
-``shard_train_state`` path, ``tdr/train/contrastive.py:103-161``).
+"""The layout of the sharded train step (``tdr``'s ``shard_train_state``
+path, ``tdr/train/contrastive.py:103-161``).
 
 ``tdr`` annotates the encoder's parameters with ``nn.with_partitioning``
 (``tdr/models/encoder.py``) and lets XLA partition one jitted step.  The
@@ -9,15 +9,9 @@ mesh of ``tdr_torch.parallel.mesh``:
 * every shard (d, m) of the ("data", "model") mesh holds its slice of each
   parameter on its device (``PARAM_SPLITS``: attention heads and the MLP's
   hidden axis over "model", everything else replicated);
-* data shard d encodes its rows of the batch; within it, model shard m
-  carries its own copy of the residual stream and computes its heads and
-  its hidden slice; the partial products of the attention's output
-  projection and of ``mlp.down`` are summed over "model" (``psum``, in
-  the compute dtype), and each shard adds its copy of the replicated bias;
-* the encoder's rounding points are ``models.encoder``'s own functions
-  (f32 LayerNorm, products rounded to the compute dtype, ``finfo.min``
-  masking); with one model shard the forward is ``DualEncoder``'s, op for
-  op;
+* data shard d encodes its rows of the batch with
+  ``models.encoder.encode_shards`` over its row of model shards, the
+  encoder's one forward;
 * after the backward a model-split slice's gradient is summed over "data",
   a replicated parameter's over every shard, in shard order, and every
   replica takes the same sum, so the replicas stay bit-equal.
@@ -29,9 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tdr_torch.models.encoder import (DualEncoder, _dtype, attend,
-                                      attention_mask, embed, layer_norm,
-                                      mlp_hidden, pool, product, project_heads)
+from tdr_torch.models.encoder import DualEncoder
 from tdr_torch.parallel.mesh import Mesh, _copy, psum
 from tdr_torch.utils.config import DenseConfig
 
@@ -78,57 +70,6 @@ def join_slices(blocks: Sequence[torch.Tensor], spec: Spec) -> torch.Tensor:
         return blocks[0]
     dev = blocks[0].device
     return torch.cat([_copy(b, dev) for b in blocks], dim=spec.index("model"))
-
-
-def _heads_bias(bias: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """Model shard ``m``'s heads of a replicated q/k/v bias."""
-    return torch.chunk(bias, n)[m]
-
-
-def _residual(x: List[torch.Tensor], parts: List[torch.Tensor],
-              row: Sequence[Params], bias: str,
-              dtype: torch.dtype) -> List[torch.Tensor]:
-    """Each model shard's residual plus the psum of the partial products
-    and its copy of the replicated bias."""
-    total = psum(parts, x[0].device)
-    return [xm + (_copy(total, xm.device) + p[bias].to(dtype))
-            for xm, p in zip(x, row)]
-
-
-def tp_encode(row: Sequence[Params], cfg: DenseConfig,
-              ids: Sequence[torch.Tensor],
-              mask: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One data shard's embeddings, (B_d, dim) f32 on model shard 0's
-    device: ``row[m]`` is model shard m's parameters, ``ids[m]`` and
-    ``mask[m]`` its copy of the shard's rows."""
-    n = len(row)
-    dtype = _dtype(cfg)
-    heads = cfg.heads // n
-    x = [embed(i, p["tok_embed.weight"], p["pos_embed"], dtype)
-         for i, p in zip(ids, row)]
-    masks = [attention_mask(mk) for mk in mask]
-    for b in range(cfg.depth):
-        pre = f"blocks.{b}."
-        parts = []
-        for m, p in enumerate(row):
-            y = layer_norm(x[m], p[pre + "ln1.weight"], p[pre + "ln1.bias"])
-            q, k, v = (project_heads(
-                y, p[f"{pre}attn.{w}.weight"],
-                _heads_bias(p[f"{pre}attn.{w}.bias"], m, n), heads, dtype)
-                for w in ("query", "key", "value"))
-            parts.append(product(attend(q, k, v, masks[m], dtype),
-                                 p[pre + "attn.out.weight"], dtype))
-        x = _residual(x, parts, row, pre + "attn.out.bias", dtype)
-        parts = []
-        for m, p in enumerate(row):
-            y = layer_norm(x[m], p[pre + "ln2.weight"], p[pre + "ln2.bias"])
-            h = mlp_hidden(y, p[pre + "mlp.up.weight"], p[pre + "mlp.up.bias"],
-                           dtype)
-            parts.append(product(h, p[pre + "mlp.down.weight"], dtype))
-        x = _residual(x, parts, row, pre + "mlp.down.bias", dtype)
-    p = row[0]
-    return pool(layer_norm(x[0], p["ln_out.weight"], p["ln_out.bias"]),
-                mask[0])
 
 
 def reduce_grads(mesh: Mesh, params: List[List[Params]],

@@ -20,8 +20,9 @@ The sharded step is ``tdr``'s ``shard_train_state`` path over a DP x TP
 mesh (``tdr_torch.parallel.mesh``): ``shard_train_state`` lays a
 ``TrainState`` out as a ``ShardedTrainState`` (each shard's parameter
 slices and their AdamW moments on its device, ``param_shardings``),
-``shard_batch`` splits a batch over "data", and the same ``make_train_step``
-runs it: the tensor-parallel forward of ``tdr_torch.parallel.train``, the
+and the same ``make_train_step`` runs it on a whole batch: ``shard_batch``
+splits the batch over "data", the tensor-parallel forward
+(``models.encoder.encode_shards``) encodes each data shard's rows, the
 loss over the whole batch (each data shard's embeddings gathered, as
 differentiable copies, before the in-batch logits), the backward, the
 gradients summed over the shards that hold a parameter, and every shard's
@@ -38,8 +39,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tdr_torch.models.encoder import (DualEncoder, encoder_state_from_flax,
-                                      init_encoder, module_device)
+from tdr_torch.models.encoder import (DualEncoder, encode_shards,
+                                      encoder_state_from_flax, init_encoder,
+                                      module_device)
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.parallel import train as tp
 from tdr_torch.parallel.mesh import Mesh, _copy, data_sharding
@@ -181,9 +183,9 @@ def batch_loss(model: DualEncoder, batch: Mapping[str, np.ndarray],
 
 def make_train_step(temperature: float = 0.05):
     """The train step: ``step_fn(state, batch) -> (state, metrics)`` updates
-    ``state`` in place, a ``TrainState`` or a ``ShardedTrainState`` (whose
-    batch may come from ``shard_batch``).  Metrics stay on the device (no
-    sync a step)."""
+    ``state`` in place, a ``TrainState`` or a ``ShardedTrainState`` (which
+    splits the batch itself, ``shard_batch``).  Metrics stay on the device
+    (no sync a step)."""
 
     def step_fn(state, batch):
         if isinstance(state, ShardedTrainState):
@@ -342,8 +344,8 @@ def sharded_batch_loss(state: ShardedTrainState, batch: ShardedBatch,
     parts = []                               # (q, p, n) of each data shard
     for row, rows in zip(state.params, batch):
         stacked = [_stacked(r, r["q_ids"].device) for r in rows]
-        emb = tp.tp_encode(row, state.cfg, [s[0] for s in stacked],
-                           [s[1] for s in stacked])
+        emb = encode_shards(row, state.cfg, [s[0] for s in stacked],
+                            [s[1] for s in stacked])
         parts.append(_split(_copy(emb, dest), rows[0]["q_ids"].shape[0],
                             with_neg))
     q, p, n = (torch.cat(x) if x[0] is not None else None
@@ -351,9 +353,9 @@ def sharded_batch_loss(state: ShardedTrainState, batch: ShardedBatch,
     return contrastive_loss(q, p, n, temperature)
 
 
-def _sharded_step(state: ShardedTrainState, batch, temperature: float):
-    if not isinstance(batch, list):
-        batch = shard_batch(state.mesh, batch)
+def _sharded_step(state: ShardedTrainState, batch: Mapping,
+                  temperature: float):
+    batch = shard_batch(state.mesh, batch)
     with ieee_f32():
         loss, metrics = sharded_batch_loss(state, batch, temperature)
         for opts in state.optimizers:
@@ -429,8 +431,6 @@ def train_dense_retriever(
         metrics = None
         for batch in make_batches(train_queries, by_id, cfg, batch_size, n_neg,
                                   seed=seed + ep):
-            if mesh is not None:
-                batch = shard_batch(mesh, batch)
             state, metrics = step_fn(state, batch)
         if metrics is None:
             log.warning(

@@ -1,6 +1,6 @@
 """The sparse path's host-facing numbers for one checkout of the port.
 
-    python3 tree_compare.py --root DIR [--tf32] [--micro]
+    python3 tree_compare.py --root DIR [--tf32] [--micro | --train]
 
 Imports ``tdr_torch`` from the checkout at ``DIR`` (this one, or another
 one unpacked beside it, such as a parent commit under ``_archive/``) and
@@ -22,7 +22,10 @@ and its 2,000 queries it prints, after the card's name and power limit:
   alternated, K2's phase-2 rescore at en Q = 256 in three forms (bmm,
   bmm inside ``ieee_f32``, the elementwise product and sum) and two ways
   to read the current stream's handle, host time of ``ieee_f32``'s enter
-  and exit.
+  and exit;
+* with ``--train``, only phase 13d instead (``parallel_check.py``'s
+  ``train_phase``: the sharded train step against the unsharded one over
+  every visible card, then the CLI's ``train --mesh 2x2``).
 
 Compare two trees only within one call on one card, in an interleaved
 order of processes (change, parent, parent, change, ...).
@@ -131,6 +134,8 @@ def main() -> None:
                     help="also run phase 9c, each check's verdict")
     ap.add_argument("--micro", action="store_true",
                     help="also time the rescore forms and host costs")
+    ap.add_argument("--train", action="store_true",
+                    help="only phase 13d, the sharded train step")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     cs = _load(root)
@@ -152,6 +157,14 @@ def main() -> None:
     cuda_build.build(force=True)
     corpus, queries = synthetic_corpus(SyntheticSpec(
         n_docs=cs.N_DOCS, n_queries=2000, seed=42, hard=True))
+    if args.train:
+        spec = importlib.util.spec_from_file_location(
+            "parallel_check_functions", os.path.join(HERE, "parallel_check.py"))
+        pc = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(pc)
+        cs.say(f"[tree {tag}] phase 13d")
+        pc.train_phase(cs, corpus, DenseConfig())
+        return
     models = build_language_models(
         corpus, index_cfg=IndexConfig(head_budget_bytes=cs.HEAD_BUDGET),
         device=cs.DEVICE)
