@@ -155,7 +155,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
    2x2`` through the CLI (unsharded on one card: a mesh needs more than
    one visible device); (e) last, ``real_eval_corpus`` through the build
    and the router on the card at the "best" and "porter" pipelines, lists
-   equal to the CPU's, "best" recall@10 >= 0.95 and recall@1 >= 0.90.
+   equal to the CPU's, "best" recall@10 >= 0.95 and recall@1 >= 0.90;
+   (f) after (c), ``tdr``'s public helpers on the card: ``segment_df``,
+   ``compute_idf`` and ``select_head`` from en's and es's COO bit for bit
+   against phase 2's statistics (and ``select_head`` against a host
+   lexsort in ``lax.top_k``'s order), ``nnz`` and ``memory_bytes()`` of
+   the seven models against their tensors' storages, each of ``tdr``'s
+   ``tail_engine`` values one K1 launch with the default call's lists, and
+   ``flat_search(recall_target=0.5)`` one K3 launch.
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
@@ -3098,6 +3105,113 @@ def realtext_phase():
         f"== CPU lists; " + "; ".join(out))
 
 
+# -- phase 13f: tdr's public helpers and engine keywords on the card -------
+
+def api_phase(models, batch, flat, q_enc):
+    """Phase 13f.  ``segment_df``, ``compute_idf`` and ``select_head`` on
+    the card from en's and es's COO, held bit for bit to phase 2's indexes
+    (and ``select_head``'s ties to a host lexsort in ``lax.top_k``'s
+    order); ``nnz`` and ``memory_bytes()`` of every phase-2 model against
+    its tensors' storages; each of ``tdr``'s ``tail_engine`` values through
+    K1 and a ``recall_target`` through K3, one launch each, with the
+    default call's lists."""
+    import numpy as np
+    import torch
+    from tdr_torch.index.build import compute_idf, segment_df, select_head
+    from tdr_torch.models.dense import flat_search
+    from tdr_torch.ops.score import score_and_topk_fused
+    from tdr_torch.ops.tail_compact import tail_segments
+
+    t0 = time.perf_counter()
+    for lang in ("en", "es"):
+        ix = models[lang].index
+        terms = coo_from_index(ix)[1]
+        df = segment_df(torch.as_tensor(terms, device=DEVICE), ix.vocab_size)
+        idf = compute_idf(df, ix.n_docs)
+        slot = select_head(df, ix.head_size)
+        need(all(t.device == ix.device for t in (df, idf, slot)),
+             f"13f {lang}: a helper's result is off the index's device")
+        for name, got, want in (("segment_df", df, ix.stats.df),
+                                ("compute_idf", idf, ix.stats.idf),
+                                ("select_head", slot, ix.head_slot)):
+            need(got.dtype == want.dtype and torch.equal(got, want),
+                 f"13f {lang}: {name} differs from the index's")
+        df_h = np.bincount(terms, minlength=ix.vocab_size).astype(np.float32)
+        need(np.array_equal(df.cpu().numpy(), df_h),
+             f"13f {lang}: segment_df differs from the host count")
+        order = np.lexsort((np.arange(df_h.size), -df_h))[:ix.head_size]
+        keep = df_h[order] > 0
+        slot_h = np.full(df_h.size, -1, np.int32)
+        slot_h[order[keep]] = np.arange(order.size, dtype=np.int32)[keep]
+        need(np.array_equal(slot.cpu().numpy(), slot_h),
+             f"13f {lang}: select_head's ties are not in lax.top_k's order")
+        n = np.float32(ix.n_docs)
+        idf_h = np.log1p((n - df_h + 0.5) / (df_h + 0.5)).astype(np.float32)
+        idf_c = idf.cpu().numpy()
+        ulps = np.abs(idf_c.view(np.int32).astype(np.int64)
+                      - idf_h.view(np.int32))
+        need(np.allclose(idf_c, idf_h, rtol=1e-6, atol=0),
+             f"13f {lang}: idf on the card {ulps.max()} ulps from the host "
+             f"formula")
+        head_df = df_h[order]
+        say(f"[13f {lang}] vocab {ix.vocab_size}, {terms.size} postings: "
+            f"segment_df, compute_idf, select_head on {df.device} == the "
+            f"index's bit for bit; head of {ix.head_size} in lax.top_k order "
+            f"({head_df.size - np.unique(head_df).size} tied df entries); "
+            f"idf vs the host formula: max {ulps.max()} ulp, "
+            f"{(ulps > 0).mean():.2%} of terms differ")
+    for lang, m in sorted(models.items()):
+        ix = m.index
+        tensors = [ix.indptr, ix.postings_doc, ix.postings_w, ix.postings_tf,
+                   ix.head_slot, ix.head_rows, ix.head_scale, ix.stats.df,
+                   ix.stats.idf, ix.stats.doc_len, ix.stats.avgdl]
+        stored = sum(t.untyped_storage().nbytes() for t in tensors
+                     if t is not None)
+        need(ix.memory_bytes() == stored,
+             f"13f {lang}: memory_bytes {ix.memory_bytes()} != storages "
+             f"{stored}")
+        need(ix.nnz >= int(ix.indptr[-1]),
+             f"13f {lang}: nnz {ix.nnz} short of the postings")
+        say(f"[13f {lang}] nnz {ix.nnz}, memory_bytes {ix.memory_bytes()} "
+            f"({ix.memory_bytes() / 2**20:.1f} MiB) == its storages")
+
+    m = models["es"]
+    qids, qw = batch("es", 256)
+    budget = min(max(m.tail_budget, 4 * m.index.tail_pmax),
+                 16 * m.index.tail_pmax)
+    over = tail_segments(m.index, qids, qw, budget)[4]
+    fine = ~over
+
+    def call(**kw):
+        return score_and_topk_fused(m.index, qids, qw, top_k=10,
+                                    tail_budget=m.tail_budget, **kw)
+
+    (bv, br), c = counted(call)
+    need(c["tail_compact"] == 1, f"13f es default call launches {c}")
+    for v in ("auto", "xla", "pallas", "pallas_interpret"):
+        (gv, gr), c = counted(lambda: call(tail_engine=v))
+        need(c["tail_compact"] == 1 and sum(c.values()) == 1,
+             f"13f es tail_engine={v!r} launches {c}, not one K1")
+        # overflowing queries take the scatter path, whose float atomics
+        # may order a sum differently from one call to the next
+        need(torch.equal(gr[fine], br[fine]) and torch.equal(gv[fine], bv[fine]),
+             f"13f es tail_engine={v!r}: lists differ from the default call's")
+        hold_lists(f"13f es tail_engine={v!r} overflow", gv[over].cpu().numpy(),
+                   gr[over].cpu().numpy(), bv[over].cpu().numpy(),
+                   br[over].cpu().numpy(), 1e-6, 1e-6)
+    q = q_enc[:256]
+    (fv, fr), c0 = counted(lambda: flat_search(flat, q, 10))
+    (rv, rr), c = counted(lambda: flat_search(flat, q, 10, recall_target=0.5))
+    need(c0["fused_flat"] == c["fused_flat"] == 1,
+         f"13f flat_search launches {c0} (default), {c} (recall_target)")
+    need(torch.equal(rv, fv) and torch.equal(rr, fr),
+         "13f flat_search(recall_target=0.5) differs from the default call")
+    say(f"[13f] es Q=256 ({int(over.sum())} overflow): every tail_engine "
+        f"value one K1 launch with the default call's lists; flat_search "
+        f"with recall_target one K3 launch, the same lists; phase 13f "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=2000)
@@ -3354,6 +3468,7 @@ def main() -> None:
         shutil.rmtree(tmp13, ignore_errors=True)
     del dense
     say(f"phase 13a-c: {time.perf_counter() - t13:.1f} s")
+    api_phase(models, batch, flat, q_enc)
     for rec in (rec_k1, rec_k2):
         rec["launches_by_path"] = {p: c[rec["name"]] for p, c in paths.items()}
 

@@ -14,4 +14,6 @@ tdr_torch.cli``, takes ``--device``); with none given it uses ``cuda`` and
 raises when CUDA is missing (it never falls back to the CPU quietly).
 """
 
+from tdr_torch.utils.config import LANGS
+
 __version__ = "0.1.0"

@@ -3,7 +3,10 @@ from tdr_torch.index.build import (
     SparseIndex,
     build_index,
     build_tfidf_index,
+    compute_idf,
     quantize_head,
+    segment_df,
+    select_head,
     sparse_index_from_arrays,
 )
 
@@ -12,6 +15,9 @@ __all__ = [
     "SparseIndex",
     "build_index",
     "build_tfidf_index",
+    "compute_idf",
     "quantize_head",
+    "segment_df",
+    "select_head",
     "sparse_index_from_arrays",
 ]

@@ -42,8 +42,7 @@ def _bucket(n: int, multiple: int = 128) -> int:
 
 
 def _compute_idf_np(df: np.ndarray, n_docs: int, variant: str) -> np.ndarray:
-    """df (V,) → idf (V,) on the host (the three reference variants)."""
-    df = np.asarray(df, np.float32)
+    """The idf formula in numpy float32, as ``tdr``'s host build runs it."""
     n = np.float32(n_docs)
     if variant in ("bm25", "bm25_plus1"):
         return np.log1p((n - df + 0.5) / (df + 0.5)).astype(np.float32)
@@ -52,15 +51,56 @@ def _compute_idf_np(df: np.ndarray, n_docs: int, variant: str) -> np.ndarray:
     raise ValueError(f"unknown idf variant: {variant}")
 
 
-def _select_head_np(df: np.ndarray, head_size: int) -> np.ndarray:
-    """head_slot (V,): slot in [0, head_size) for the top-df terms (value
-    descending, lowest term id first), -1 else."""
+def compute_idf(df, n_docs: int, variant: str = "bm25",
+                device: DeviceLike = None) -> torch.Tensor:
+    """df (V,) → idf (V,) float32, on ``df``'s device (a tensor) or on
+    ``resolve_device(device)`` (an array).
+
+    variant="bm25" and "bm25_plus1": ln(1 + (N-df+0.5)/(df+0.5));
+    variant="classic": ln((N+1)/(df+1)) + 1.
+
+    On the CPU the formula runs in numpy, as ``tdr``'s host build
+    (``df_host``) runs it, so a CPU build's idf equals ``tdr``'s bit for
+    bit; on the card it runs as torch ops in float32, whose ``log1p`` may
+    round an ulp away from numpy's.  ``build_index`` calls it on its own
+    device, so the index's idf is this function's result there."""
+    if not isinstance(df, torch.Tensor):
+        df = torch.as_tensor(np.asarray(df, np.float32),
+                             device=resolve_device(device))
+    df = df.to(torch.float32)
+    if df.device.type == "cpu":
+        return torch.from_numpy(_compute_idf_np(df.numpy(), n_docs, variant))
+    n = torch.tensor(n_docs, dtype=torch.float32, device=df.device)
+    if variant in ("bm25", "bm25_plus1"):
+        return torch.log1p((n - df + 0.5) / (df + 0.5))
+    if variant == "classic":
+        return torch.log((n + 1.0) / (df + 1.0)) + 1.0
+    raise ValueError(f"unknown idf variant: {variant}")
+
+
+def segment_df(term_ids, vocab_size: int) -> torch.Tensor:
+    """Document frequency per term, float32 (V,), from COO term ids (one
+    entry per unique (doc, term) pair), on their device; ids at or past
+    ``vocab_size`` (the padding) are not counted."""
+    ti = torch.as_tensor(term_ids).long()
+    valid = ti < vocab_size
+    df = torch.zeros(vocab_size, dtype=torch.float32, device=ti.device)
+    return df.index_add_(0, torch.where(valid, ti, 0), valid.float())
+
+
+def select_head(df: torch.Tensor, head_size: int) -> torch.Tensor:
+    """head_slot (V,) int32: slot in [0, head_size) for the top-df terms in
+    ``lax.top_k``'s order (df descending, lowest term id first among equal
+    df), -1 for the others and for terms of zero df."""
     vocab_size = df.shape[0]
-    head_slot = np.full(vocab_size, -1, np.int32)
+    head_slot = torch.full((vocab_size,), -1, dtype=torch.int32,
+                           device=df.device)
     if head_size > 0:
-        order = np.lexsort((np.arange(vocab_size), -np.asarray(df)))[:head_size]
-        keep = np.asarray(df)[order] > 0
-        head_slot[order[keep]] = np.arange(head_size, dtype=np.int32)[keep]
+        # a stable sort keeps equal df in term order (torch.topk may not)
+        order = torch.sort(df, descending=True, stable=True).indices[:head_size]
+        keep = df[order] > 0
+        head_slot[order[keep]] = torch.arange(
+            order.numel(), dtype=torch.int32, device=df.device)[keep]
     return head_slot
 
 
@@ -123,6 +163,19 @@ class SparseIndex:
     def device(self) -> torch.device:
         return self.head_rows.device
 
+    @property
+    def nnz(self) -> int:
+        """Padded postings length."""
+        return int(self.postings_doc.shape[0])
+
+    def memory_bytes(self) -> int:
+        """Bytes of every tensor of the index, ``stats`` and ``head_scale``
+        included (``tdr``'s sum over the pytree's leaves)."""
+        tensors = [getattr(self, f) for f in _INDEX_ARRAYS + ("head_scale",)]
+        tensors += [getattr(self.stats, f) for f in _STATS_ARRAYS]
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if t is not None)
+
     def to(self, device: DeviceLike) -> "SparseIndex":
         dev = torch.device(device)
         return dataclasses.replace(
@@ -158,9 +211,7 @@ def _build_core(
     d_clamped = doc_ids.clamp(0, n_docs_pad - 1).long()
     dev = term_ids.device
 
-    # local postings length per term (CSR segment bounds)
-    df_local = torch.zeros(vocab_size, dtype=torch.float32, device=dev)
-    df_local.index_add_(0, t_clamped, valid.float())
+    df_local = segment_df(term_ids, vocab_size)   # CSR segment bounds
 
     # per-entry score weight (same operation order as the JAX build)
     dl = doc_len[d_clamped]
@@ -256,6 +307,21 @@ def _bucket_tail_pmax(tail_pmax: int, bucketing: bool) -> int:
     return max(8, _round_up(tail_pmax, 128))
 
 
+def _as_tensor(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """An array (copied: it may be read-only) or a tensor, on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def _tail_pmax(df: torch.Tensor, head_slot: torch.Tensor, bucketing: bool
+               ) -> int:
+    """The static tail width from the widest tail term's df."""
+    tail_df = df[head_slot < 0]
+    return _bucket_tail_pmax(int(tail_df.max()) if tail_df.numel() else 0,
+                             bucketing)
+
+
 def build_index(
     doc_ids: np.ndarray,
     term_ids: np.ndarray,
@@ -266,14 +332,14 @@ def build_index(
     index_cfg: IndexConfig = IndexConfig(),
     weight_kind: str = "bm25",
     head_size: Optional[int] = None,
-    df_host: Optional[np.ndarray] = None,
-    device: DeviceLike = None,
-    idf: Optional[np.ndarray] = None,
+    idf=None,
+    head_slot=None,
     avgdl: Optional[float] = None,
-    head_slot: Optional[np.ndarray] = None,
     n_docs_pad: Optional[int] = None,
     nnz_pad: Optional[int] = None,
     tail_pmax: Optional[int] = None,
+    df_host: Optional[np.ndarray] = None,
+    device: DeviceLike = None,
 ) -> SparseIndex:
     """Pad the COO to static shapes, run the build on ``device`` and derive
     the static tail width (``tdr.index.build.build_index``'s contract).
@@ -285,9 +351,10 @@ def build_index(
     padded shapes ``n_docs_pad`` and ``nnz_pad``, so that a shard scores
     its documents as the single-device index does.
 
-    Without ``df_host`` the document frequencies are counted from the COO
-    on the host (one entry per unique (doc, term) pair, so the count is the
-    df), which gives the same numbers as the JAX build's device segment-sum.
+    The statistics go through the public helpers on ``device``: df from
+    ``df_host`` or ``segment_df``, then ``compute_idf`` and
+    ``select_head``, so each equals the index's own bit for bit.  ``idf``
+    and ``head_slot`` may be arrays or tensors.
     """
     dev = resolve_device(device)
     n_docs = int(doc_lens.shape[0])
@@ -307,49 +374,44 @@ def build_index(
     dl = np.zeros(n_docs_pad, np.float32)
     dl[:n_docs] = doc_lens
     if idf is not None:
-        vocab_pad = int(np.asarray(idf).shape[0])
+        vocab_pad = len(idf)
+    ti_t = torch.as_tensor(ti, device=dev)
 
     if idf is None or head_slot is None:
-        df_g = np.zeros(vocab_pad, np.float32)
         if df_host is not None:
-            df_g[:len(df_host)] = np.asarray(df_host, np.float32)
+            df_g = torch.zeros(vocab_pad, dtype=torch.float32, device=dev)
+            df_g[:len(df_host)] = _as_tensor(df_host, torch.float32, dev)
         else:
-            df_g[:] = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
+            df_g = segment_df(ti_t[:nnz], vocab_pad)
         if idf is None:
-            idf = _compute_idf_np(df_g, n_docs, bm25.idf_variant)
+            idf = compute_idf(df_g, n_docs, bm25.idf_variant)
         if head_slot is None:
             if head_size is None:
                 if index_cfg.head_min_df > 0:
-                    head_size = int(np.sum(df_g >= index_cfg.head_min_df))
+                    head_size = int((df_g >= index_cfg.head_min_df).sum())
                 else:
                     head_size = _auto_head_size(vocab_pad, n_docs_pad, index_cfg)
                 if bucketing and 256 < head_size < vocab_pad:
                     head_size = (head_size // 256) * 256   # floor: stay in budget
             head_size = min(head_size, vocab_pad)
-            head_slot = _select_head_np(df_g, head_size)
+            head_slot = select_head(df_g, head_size)
         if tail_pmax is None:
-            tail_df = df_g[head_slot < 0]
-            tail_pmax = _bucket_tail_pmax(
-                int(tail_df.max()) if tail_df.size else 0, bucketing)
-    idf = np.asarray(idf, np.float32)
-    head_slot = np.asarray(head_slot, np.int32)
+            tail_pmax = _tail_pmax(df_g, head_slot, bucketing)
+    idf_t = _as_tensor(idf, torch.float32, dev)
+    head_slot_t = _as_tensor(head_slot, torch.int32, dev)
     if head_size is None:
-        head_size = int(head_slot.max()) + 1 if vocab_pad else 0
+        head_size = int(head_slot_t.max()) + 1 if vocab_pad else 0
     if tail_pmax is None:
         # injected statistics, no tail width: the widest LOCAL tail list
-        df_local = np.bincount(np.asarray(term_ids), minlength=vocab_pad)
-        tail_df = df_local[:vocab_pad][head_slot < 0]
-        tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
-                                      bucketing)
+        tail_pmax = _tail_pmax(segment_df(ti_t[:nnz], vocab_pad), head_slot_t,
+                               bucketing)
     if avgdl is None:
         avgdl = float(doc_lens.sum() / max(n_docs, 1))
 
-    head_slot_t = torch.as_tensor(head_slot, device=dev)
-    idf_t = torch.as_tensor(idf, device=dev)
     avgdl_t = torch.tensor(avgdl, dtype=torch.float32, device=dev)
     (indptr, postings_doc, postings_w, postings_tf, head_rows,
      df_local) = _build_core(
-        torch.as_tensor(di, device=dev), torch.as_tensor(ti, device=dev),
+        torch.as_tensor(di, device=dev), ti_t,
         torch.as_tensor(tv, device=dev), torch.as_tensor(dl, device=dev),
         idf_t, head_slot_t, avgdl_t,
         vocab_size=vocab_pad, n_docs_pad=n_docs_pad, head_size=head_size,

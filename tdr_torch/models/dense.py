@@ -153,14 +153,16 @@ def _plain_scores(index: FlatIndex, q: torch.Tensor) -> torch.Tensor:
 
 
 def flat_search(index: FlatIndex, q: torch.Tensor, top_k: int = 10,
-                approx: bool = False, engine: str = "auto"):
+                approx: bool = False, recall_target: float = 0.95,
+                engine: str = "auto"):
     """(Q, D) queries → (vals (Q, top_k) f32, rows (Q, top_k) int64), padded
     with (-inf, 0).
 
     Metric "ip": vals are inner products, descending.  Metric "l2": vals
     are negated squared L2 distances (nearest first) over the raw
     embeddings.  ``approx=True`` takes the plain path with an exact top-k
-    (``tdr``'s ``approx_max_k`` is a TPU custom call).  ``engine`` as in
+    (``tdr``'s ``approx_max_k`` is a TPU custom call), so ``recall_target``
+    is accepted for ``tdr``'s signature and ignored.  ``engine`` as in
     ``_resolve_flat_engine``."""
     eng = _resolve_flat_engine(index, top_k, approx, engine)
     if eng == "fused":
@@ -188,12 +190,14 @@ def flat_search(index: FlatIndex, q: torch.Tensor, top_k: int = 10,
 
 def flat_search_prf(index: FlatIndex, q: torch.Tensor, top_k: int = 10,
                     n_feedback: int = 3, alpha: float = 0.5,
-                    approx: bool = False, engine: str = "auto"):
+                    approx: bool = False, recall_target: float = 0.95,
+                    engine: str = "auto"):
     """Rocchio pseudo-relevance feedback: first pass top-F, pull the query
     toward the feedback centroid, one second pass.  "ip": the refined query
     is rescaled to the original norm (alpha=0 equals plain flat_search);
     "l2": ``(1-alpha)·q + alpha·centroid``.  Feedback embeddings dequantize
-    per doc for int8 indexes."""
+    per doc for int8 indexes.  ``recall_target`` is ignored, as in
+    ``flat_search``."""
     fb_vals, fb_rows = flat_search(index, q, top_k=n_feedback, approx=approx,
                                    engine=engine)
     finite = torch.isfinite(fb_vals)

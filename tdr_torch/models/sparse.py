@@ -7,9 +7,9 @@ platform check replaced by the shape gate alone: the row gather for
 batches of at most ``small_q_threshold`` queries, the fused block-max
 kernel when ``fused_head_available`` passes (exact and exact_compact
 modes), else the full-head product.  Tail-bearing indexes always compact
-their tails with the ``tail_compact`` kernel; ``use_fused_topk=False``
-scores through the scatter path instead.  No environment variable chooses
-an engine.
+their tails with the ``tail_compact`` kernel, whatever ``tail_engine``
+says; ``use_fused_topk=False`` scores through the scatter path instead.
+No environment variable chooses an engine.
 """
 
 from __future__ import annotations
@@ -41,6 +41,9 @@ class SparseModel:
     query_weight: str = "unit"        # "unit" (BM25) | "idf" (cosine)
     tail_budget: int = 1024           # fused-topk tail compaction budget
     use_fused_topk: bool = True       # False: the scatter path, no kernel
+    # tdr's tail engine choice, accepted with any of its values: the port's
+    # one tail engine is the tail_compact kernel (its plain version on CPU)
+    tail_engine: str = "auto"
     # "exact" | "exact_compact" (widened head candidates, tiered merge) |
     # "approx" (the same tiers; tdr's approx_max_k is exact off the TPU)
     topk_mode: str = "exact"
@@ -128,7 +131,7 @@ class SparseModel:
         if self.use_fused_topk:
             return score_and_topk_fused(
                 self.index, qids, qw, top_k=k, tail_budget=self.tail_budget,
-                topk_mode=self.topk_mode,
+                tail_engine=self.tail_engine, topk_mode=self.topk_mode,
                 head_engine=self.head_engine(qids.shape[0], k))
         return score_and_topk(self.index, qids, qw, top_k=k)
 
@@ -187,7 +190,8 @@ class SparseModel:
         qids, qw = self.encode_query_tokens(token_lists)
         cand = torch.as_tensor(np.asarray(cand_rows), device=self.device)
         return score_candidates_fused(self.index, qids, qw, cand,
-                                      tail_budget=self.tail_budget
+                                      tail_budget=self.tail_budget,
+                                      tail_engine=self.tail_engine
                                       ).cpu().numpy()
 
 

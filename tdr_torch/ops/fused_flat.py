@@ -51,10 +51,14 @@ def _pick_block(n: int, qp: int, d: int, esize: int) -> int:
     return 0
 
 
-def fused_flat_available(embeddings: torch.Tensor, top_k: int = 10) -> bool:
+def fused_flat_available(embeddings: torch.Tensor, top_k: int = 10,
+                         sub: int = SUB) -> bool:
     """Shape gate of ``tdr.ops.pallas_flat.fused_flat_available``: D a
     multiple of 128, N a multiple of 64 and at least 8192, bf16/f32/int8
-    storage.  No environment variable takes part."""
+    storage.  The kernel groups ``SUB`` = 8 rows, so any other ``sub``
+    fails the gate.  No environment variable takes part."""
+    if sub != SUB:
+        return False
     n, d = embeddings.shape
     if d % _LANES or n % (8 * SUB) or n < 8192:
         return False
@@ -204,12 +208,17 @@ def fused_flat_topk(embeddings: torch.Tensor, q: torch.Tensor,
                     top_k: int = 10, metric: str = "ip", n_docs: int = 0,
                     doc_sq: Optional[torch.Tensor] = None,
                     doc_scale: Optional[torch.Tensor] = None,
-                    n_valid: Optional[int] = None,
+                    n_valid: Optional[int] = None, sub: int = SUB,
+                    interpret: bool = False,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact flat top-k with fused block scoring: (vals (Q, top_k) f32, rows
     (Q, top_k) int64), the semantics of ``flat_search``: "ip" vals are inner
     products, "l2" vals are true ``-‖q-d‖²``; padding and out-of-range slots
-    are (-inf, 0).  ``n_valid`` overrides ``n_docs``."""
+    are (-inf, 0).  ``n_valid`` overrides ``n_docs``.  ``sub`` must be
+    ``SUB`` (the kernel's group of 8 rows); ``interpret`` is accepted for
+    ``tdr``'s signature and ignored (CPU tensors take the plain version)."""
+    if sub != SUB:
+        raise ValueError(f"sub={sub}: the kernel groups {SUB} rows")
     N = embeddings.shape[0]
     Q = q.shape[0]
     dev = embeddings.device

@@ -55,8 +55,10 @@ def _pick_head_block(n: int, qp: int, d: int, esize: int, sub: int) -> int:
 def fused_head_available(index, top_k: int = 10, sub: int = SUB) -> bool:
     """Shape gate of ``tdr.ops.pallas_flat.fused_head_available``: a
     full-vocab head (no tail to merge), bf16/f32 rows, aligned shapes and
-    at least 65,536 documents.  No environment variable takes part."""
-    if index.head_size < index.vocab_size:
+    at least 65,536 documents.  The kernel groups ``SUB`` = 8 documents, so
+    any other ``sub`` fails the gate.  No environment variable takes
+    part."""
+    if sub != SUB or index.head_size < index.vocab_size:
         return False
     d, n = index.head_rows.shape
     if index.head_rows.dtype not in (torch.bfloat16, torch.float32):
@@ -179,13 +181,18 @@ def compact_active_rows(W: torch.Tensor, slot: torch.Tensor,
 
 def fused_head_topk(index, qids: torch.Tensor, qw: torch.Tensor,
                     top_k: int = 10, n_valid: Optional[int] = None,
+                    sub: int = SUB, interpret: bool = False, *,
                     blockmax: Callable = fused_head_blockmax,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact head-score top-k of a full-vocab-head index without the (Q, N)
     score matrix: (vals (Q, top_k) f32, rows (Q, top_k) int64), padded with
     (-inf, 0).  ``blockmax`` computes phase 1; a caller may pass
     ``fused_head_blockmax_plain`` to hold the kernel against its plain
-    version through the whole function."""
+    version through the whole function.  ``sub`` must be ``SUB`` (the
+    kernel's group of 8 documents); ``interpret`` is accepted for ``tdr``'s
+    signature and ignored (CPU tensors take the plain version)."""
+    if sub != SUB:
+        raise ValueError(f"sub={sub}: the kernel groups {SUB} documents")
     head = index.head_rows
     D, N = head.shape
     Q, T = qids.shape

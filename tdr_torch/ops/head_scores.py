@@ -100,10 +100,12 @@ def head_scores_rows(rows: torch.Tensor, slots: torch.Tensor,
 
 
 def head_scores(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
-                max_head_terms: int = DEFAULT_MAX_HEAD_TERMS) -> torch.Tensor:
+                max_head_terms: int = DEFAULT_MAX_HEAD_TERMS,
+                interpret: bool = False) -> torch.Tensor:
     """(Q, N_pad) f32 head scores from at most ``max_head_terms`` active head
     rows per query; queries with more are re-scored by the full-head
-    product."""
+    product.  ``interpret`` is accepted for ``tdr``'s signature and ignored
+    (CPU tensors take the plain version)."""
     if index.head_rows.dtype == torch.int8:
         raise NotImplementedError(
             "head_scores does not implement int8 dequantization (as "

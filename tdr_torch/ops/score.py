@@ -379,8 +379,8 @@ def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
 
 def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
                          qw: torch.Tensor, top_k: int = 10,
-                         tail_budget: int = 2048, n_valid=None,
-                         topk_mode: str = "exact",
+                         tail_budget: int = 2048, tail_engine: str = "xla",
+                         n_valid=None, topk_mode: str = "exact",
                          head_engine: str = "matmul"):
     """Exact top-k without the tail scatter: score(d) = head(d) + tail(d),
     with the tail compacted to a budget per query before any gather and
@@ -396,6 +396,9 @@ def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
     full-width tier 2 when it trips) or "approx" (the same tiers at ``k``
     head candidates and ``max(512, 2 tail_pmax)`` tail sums; exact here, as
     in ``tdr`` off the TPU).
+    ``tail_engine`` takes any of ``tdr``'s values ("auto", "xla", "pallas",
+    "pallas_interpret") and changes nothing: the port has one tail engine,
+    the ``tail_compact`` kernel on the card (its plain version on the CPU).
     """
     vals, docs, overflow = _fused_topk_core(index, qids, qw, top_k,
                                             tail_budget, n_valid, topk_mode,
@@ -411,13 +414,15 @@ def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
 
 def score_candidates_fused(index: SparseIndex, qids: torch.Tensor,
                            qw: torch.Tensor, cand: torch.Tensor,
-                           tail_budget: int = 2048) -> torch.Tensor:
+                           tail_budget: int = 2048, tail_engine: str = "xla"
+                           ) -> torch.Tensor:
     """(Q, C) scores for explicit candidate rows: the full-head product
     gathered at the candidates, plus the ``tail_compact`` kernel's slots
     matched against the candidates by an equality-weighted sum.  Matches
     ``score_pairs`` up to the head's dtype rounding (bf16 heads); exact for
     f32 heads.  Queries whose tail overflows the budget take
-    ``score_pairs`` rows."""
+    ``score_pairs`` rows.  ``tail_engine`` changes nothing, as in
+    ``score_and_topk_fused``."""
     Q, C = cand.shape
     qids = qids.clamp(0, index.vocab_size - 1)
     cand = cand.long()

@@ -117,13 +117,15 @@ def tail_compact_plain(index: SparseIndex, qids: torch.Tensor,
 
 
 def tail_compact(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
-                 budget: int, max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS
+                 budget: int, max_tail_terms: int = DEFAULT_MAX_TAIL_TERMS,
+                 interpret: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Compacted tail slots: (docs (Q, W) int32, vals (Q, W) f32, overflow
     (Q,) bool) with W = ``row_width(budget, tail_pmax)``; vals == -1 marks
     dead lanes (``tdr.ops.pallas_tail.tail_compact_pallas``'s contract).  On
     CUDA tensors one launch of the kernel does it all, term compaction
-    included; on CPU tensors the plain version runs."""
+    included; on CPU tensors the plain version runs.  ``interpret`` is
+    accepted for ``tdr``'s signature and ignored."""
     if not qids.is_cuda:
         return tail_compact_plain(index, qids, qw, budget, max_tail_terms)
     Q, T = qids.shape

@@ -23,17 +23,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tdr_torch.index.build import (SparseIndex, _auto_head_size,
-                                   _bucket, _bucket_tail_pmax,
-                                   _compute_idf_np, _round_up,
-                                   _select_head_np, build_index)
+from tdr_torch.index.build import (SparseIndex, _auto_head_size, _bucket,
+                                   _round_up, _tail_pmax, build_index,
+                                   compute_idf, segment_df, select_head)
 from tdr_torch.ops.score import (_fused_topk_core, _scatter_topk,
                                  score_and_topk)
 from tdr_torch.ops.topk import merge_gathered_topk
 from tdr_torch.parallel.mesh import (Mesh, _copy, all_gather, data_sharding,
                                      psum, replicated)
 from tdr_torch.utils.config import BM25Config, IndexConfig
-from tdr_torch.utils.device import DeviceLike
+from tdr_torch.utils.device import DeviceLike, resolve_device
 
 # stacked per-shard fields in ``tdr``'s layout, and where each lives in a
 # shard's SparseIndex
@@ -127,11 +126,8 @@ def spmd_global_stats(mesh: Mesh, term_ids, doc_len, vocab_size: int
     devs = mesh.axis_devices("data")
     dfs, totals = [], []
     for s, dev in enumerate(devs):
-        ti = _copy(torch.as_tensor(term_ids[s]), dev).long()
-        valid = ti < vocab_size
-        df = torch.zeros(vocab_size, dtype=torch.float32, device=dev)
-        df.index_add_(0, torch.where(valid, ti, 0), valid.float())
-        dfs.append(df)
+        dfs.append(segment_df(_copy(torch.as_tensor(term_ids[s]), dev),
+                              vocab_size))
         totals.append(_copy(torch.as_tensor(doc_len[s]), dev).sum())
     return psum(dfs, mesh.first), psum(totals, mesh.first)
 
@@ -166,24 +162,24 @@ def build_sharded_index(
         n_loc_pad = _bucket(n_loc_pad, index_cfg.doc_pad_multiple)
         vocab_size = _bucket(max(vocab_size, 1), 128)
 
-    # ---- corpus-global statistics (host) -----------------------------------
+    # ---- corpus-global statistics, on the first shard's device -------------
+    shard_devs = _shard_devices(devices, n_shards)
     term_ids = np.asarray(term_ids)
-    df_g = np.bincount(term_ids, minlength=vocab_size)[:vocab_size].astype(
-        np.float32)
+    df_g = segment_df(torch.as_tensor(term_ids,
+                                      device=resolve_device(shard_devs[0])),
+                      vocab_size)
     idf_variant = bm25.idf_variant if weight_kind == "bm25" else "classic"
-    idf = _compute_idf_np(df_g, n_docs, idf_variant)
+    idf = compute_idf(df_g, n_docs, idf_variant)
     if head_size is None:
         if index_cfg.head_min_df > 0:
-            head_size = int(np.sum(df_g >= index_cfg.head_min_df))
+            head_size = int((df_g >= index_cfg.head_min_df).sum())
         else:
             head_size = _auto_head_size(vocab_size, n_loc_pad, index_cfg)
     head_size = min(head_size, vocab_size)
-    head_slot = _select_head_np(df_g, head_size)
+    head_slot = select_head(df_g, head_size)
     avgdl = float(doc_lens.sum() / max(n_docs, 1))
     # one tail width for every shard: the widest GLOBAL tail list
-    tail_df = df_g[head_slot < 0]
-    tail_pmax = _bucket_tail_pmax(int(tail_df.max()) if tail_df.size else 0,
-                                  index_cfg.shape_bucketing)
+    tail_pmax = _tail_pmax(df_g, head_slot, index_cfg.shape_bucketing)
 
     # ---- per-shard builds --------------------------------------------------
     doc_ids = np.asarray(doc_ids)
@@ -197,7 +193,7 @@ def build_sharded_index(
         nnz_pad = _bucket(nnz_pad, index_cfg.nnz_pad_multiple)
 
     shards = []
-    for s, dev in enumerate(_shard_devices(devices, n_shards)):
+    for s, dev in enumerate(shard_devs):
         sel = per_entry_shard == s
         shards.append(build_index(
             doc_ids[sel] - bounds[s], term_ids[sel], np.asarray(tfs)[sel],

@@ -27,26 +27,33 @@ from tdr_torch.text.preprocess import Preprocessor
 
 def cascade_score_topk(cand_index, rank_index, qids1: torch.Tensor,
                        qw1: torch.Tensor, qids2: torch.Tensor,
-                       qw2: torch.Tensor, C: int, k: int, tail_budget: int):
+                       qw2: torch.Tensor, C: int, k: int, tail_budget: int,
+                       cand_engine: str = "xla", rank_engine: str = "xla"):
     """Both stages, dispatched back to back: fused top-C candidates →
-    candidate re-score → final top-k.  (vals (Q, min(k, C)), rows)."""
+    candidate re-score → final top-k.  (vals (Q, min(k, C)), rows).
+    ``cand_engine`` and ``rank_engine`` are each stage's ``tail_engine``
+    (see ``score_and_topk_fused``)."""
     vals1, cand_rows = score_and_topk_fused(
-        cand_index, qids1, qw1, top_k=C, tail_budget=tail_budget)
+        cand_index, qids1, qw1, top_k=C, tail_budget=tail_budget,
+        tail_engine=cand_engine)
     return rerank_pairs_topk(rank_index, qids2, qw2, cand_rows, vals1,
-                             min(k, C), tail_budget=tail_budget)
+                             min(k, C), tail_budget=tail_budget,
+                             tail_engine=rank_engine)
 
 
 def rerank_pairs_topk(rank_index, qids2: torch.Tensor, qw2: torch.Tensor,
                       cand_rows: torch.Tensor, vals1: torch.Tensor, k: int,
-                      tail_budget: int = 2048, exact_pairs: bool = False):
+                      tail_budget: int = 2048, tail_engine: str = "xla",
+                      exact_pairs: bool = False):
     """Stage 2 alone: re-rank explicit candidate rows and take the top-k.
-    ``score_candidates_fused`` by default; ``exact_pairs=True`` takes the
-    f32-exact binary-search ``score_pairs``."""
+    ``score_candidates_fused`` (with ``tail_engine``) by default;
+    ``exact_pairs=True`` takes the f32-exact binary-search ``score_pairs``."""
     if exact_pairs:
         re_scores = score_pairs(rank_index, qids2, qw2, cand_rows)
     else:
         re_scores = score_candidates_fused(rank_index, qids2, qw2, cand_rows,
-                                           tail_budget=tail_budget)
+                                           tail_budget=tail_budget,
+                                           tail_engine=tail_engine)
     re_scores = torch.where(torch.isfinite(vals1), re_scores,
                             torch.full((), NEG_INF, device=re_scores.device))
     vals, sel = fast_topk(re_scores, k)

@@ -39,8 +39,8 @@ def build_language_models(
     head_size: Optional[int] = None,
     tracer: Optional[Tracer] = None,
     use_native: bool = True,
-    device: DeviceLike = None,
     resume_dir: Optional[str] = None,
+    device: DeviceLike = None,
 ) -> Dict[str, SparseModel]:
     """Partition the corpus by language, preprocess, and build one model per
     language on ``device``, the total head budget waterfilled across them.

@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from tdr_torch.index.build import _compute_idf_np, build_index
+from tdr_torch.index.build import build_index, compute_idf
 from tdr_torch.models.sparse import BM25Model
 from tdr_torch.rank.router import _gather_results
 from tdr_torch.text.vocab import build_vocab, encode_docs
@@ -143,8 +143,8 @@ class SegmentedBM25:
             if j is not None and j < main_df.shape[0]:
                 df_delta[i] += float(main_df[j])
         n_total = self.main.index.n_docs + len(self._delta_ids)
-        idf = _compute_idf_np(df_delta.astype(np.float32), n_total,
-                              self.bm25.idf_variant)
+        idf = compute_idf(df_delta.astype(np.float32), n_total,
+                          self.bm25.idf_variant, device=self.main.device)
         main_dl = self.main.index.stats.doc_len.cpu().numpy()
         avgdl = float((main_dl.sum() + coo[3].sum()) / max(n_total, 1))
         index = build_index(*coo, vocab.size, bm25=self.bm25,

@@ -330,18 +330,27 @@ def test_fast_encode_copy_matches_jax_package(lang):
 
 
 def test_port_imports_no_jax_nltk_or_tdr():
-    """tdr_torch and chip_smoke.py import with jax, nltk and tdr blocked."""
+    """Every module of tdr_torch, and chip_smoke.py, parallel_check.py and
+    tree_compare.py, import with jax, nltk and tdr blocked."""
     code = (
-        "import sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "class B:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'nltk', 'tdr'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, B())\n"
-        "import tdr_torch.rank.router, tdr_torch.ops.score, chip_smoke\n"
-        "import tdr_torch.text.fast, tdr_torch.eval, tdr_torch.utils.trace\n"
-        "print('ok')\n")
+        "import tdr_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    tdr_torch.__path__, 'tdr_torch.')\n"
+        "    if importlib.util.find_spec(m.name).origin.endswith('.py')]\n"
+        "names += ['chip_smoke', 'parallel_check', 'tree_compare']\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    n_files = sum(f.endswith(".py") for _, _, fs in
+                  os.walk(os.path.join(REPO, "tdr_torch")) for f in fs)
+    # every file but the root __init__.py, which is the package itself
+    assert int(out.stdout.strip()) == n_files - 1 + 3
