@@ -27,6 +27,7 @@ from tdr_torch.ops.score import (score_and_topk, score_and_topk_fused,
 from tdr_torch.text.vocab import Vocab, build_vocab, encode_docs, encode_queries
 from tdr_torch.utils.config import BM25Config, IndexConfig
 from tdr_torch.utils.device import DeviceLike
+from tdr_torch.utils.trace import annotate
 
 
 @dataclass
@@ -86,23 +87,29 @@ class SparseModel:
     def encode_query_tokens_np(self, token_lists: Sequence[Sequence[str]]
                                ) -> Tuple[np.ndarray, np.ndarray]:
         """Host-side encoding: (qids (Q, T) int32, qw (Q, T) f32) numpy."""
-        if self.spell_correct:
-            token_lists = self._repairer().repair_token_lists(
-                token_lists, self.vocab.term_to_id)
-        qids, qw = encode_queries(token_lists, self.vocab, self.max_query_terms)
-        if self.query_weight == "idf":
-            # cosine query vector = idf per present term
-            idf = self.index.stats.idf.cpu().numpy()
-            qw = np.where(qw > 0, idf[np.clip(qids, 0, idf.shape[0] - 1)] * qw,
-                          0.0).astype(np.float32)
-        return qids, qw
+        with annotate("tdr_torch.sparse.encode"):
+            if self.spell_correct:
+                token_lists = self._repairer().repair_token_lists(
+                    token_lists, self.vocab.term_to_id)
+            qids, qw = encode_queries(token_lists, self.vocab,
+                                      self.max_query_terms)
+            if self.query_weight == "idf":
+                # cosine query vector = idf per present term
+                idf = self.index.stats.idf.cpu().numpy()
+                qw = np.where(qw > 0,
+                              idf[np.clip(qids, 0, idf.shape[0] - 1)] * qw,
+                              0.0).astype(np.float32)
+            return qids, qw
 
     def encode_query_tokens(self, token_lists: Sequence[Sequence[str]]
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(qids (Q, T) int32, qw (Q, T) f32) on the model's device."""
-        qids, qw = self.encode_query_tokens_np(token_lists)
-        return (torch.from_numpy(qids).to(self.device),
-                torch.from_numpy(qw).to(self.device))
+        """(qids (Q, T) int32, qw (Q, T) f32) on the model's device.  Each
+        copy from pageable host memory waits for the device's stream."""
+        out = []
+        for a in self.encode_query_tokens_np(token_lists):
+            with annotate("tdr_torch.sync.queries_h2d"):
+                out.append(torch.from_numpy(a).to(self.device))
+        return tuple(out)
 
     # -- scoring -------------------------------------------------------------
 
@@ -122,9 +129,10 @@ class SparseModel:
         """Scoring from encoded query tensors on the model's device; returns
         device tensors (vals (Q, k), rows (Q, k)).  With ``prf`` this runs
         the two-pass feedback loop, with no host read between the passes."""
-        if self.prf:
-            qids, qw = self._prf_expand(qids, qw)
-        return self._score_encoded(qids, qw, k)
+        with annotate("tdr_torch.sparse.score"):
+            if self.prf:
+                qids, qw = self._prf_expand(qids, qw)
+            return self._score_encoded(qids, qw, k)
 
     def _score_encoded(self, qids: torch.Tensor, qw: torch.Tensor, k: int):
         """One scoring pass (never expands)."""

@@ -28,6 +28,7 @@ from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.ops.scan import xla_cumsum
 from tdr_torch.ops.tail_compact import tail_compact
 from tdr_torch.ops.topk import fast_topk, topk_grouped
+from tdr_torch.utils.trace import annotate
 
 NEG_INF = float("-inf")
 # query language code that matches every document
@@ -359,7 +360,9 @@ def _fused_topk_core(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
         # Otherwise tier 2 re-merges with every live slot.  A host branch
         # on the flag (lax.cond in the JAX code): this reads one bool back,
         # so it syncs with the device once per batch.
-        risky = bool((t1_vals[:, k - 1] < hv_k + tau).any())
+        flag = (t1_vals[:, k - 1] < hv_k + tau).any()
+        with annotate("tdr_torch.sync.tier2"):
+            risky = bool(flag)
         st = tier2_stats[topk_mode]
         st["batches"] += 1
         if risky:
@@ -405,7 +408,10 @@ def score_and_topk_fused(index: SparseIndex, qids: torch.Tensor,
                                             head_engine)
     # host branch on the flag (lax.cond in the JAX code): this reads one
     # bool back, so it syncs with the device once per batch
-    if bool(overflow.any()):
+    flag = overflow.any()
+    with annotate("tdr_torch.sync.overflow"):
+        overflowed = bool(flag)
+    if overflowed:
         sv, sd = _scatter_topk(index, qids, qw, top_k, n_valid)
         vals = torch.where(overflow[:, None], sv, vals)
         docs = torch.where(overflow[:, None], sd, docs)
@@ -442,7 +448,10 @@ def score_candidates_fused(index: SparseIndex, qids: torch.Tensor,
             eq, v_pos[:, None, :], zero).sum(dim=2)
     fused = head_at + tail_at
     # host branch on the flag (lax.cond in the JAX code): one bool read back
-    if bool(overflow.any()):
+    flag = overflow.any()
+    with annotate("tdr_torch.sync.overflow"):
+        overflowed = bool(flag)
+    if overflowed:
         exact = score_pairs(index, qids, qw, cand)
         fused = torch.where(overflow[:, None], exact, fused)
     return fused

@@ -5,7 +5,10 @@ Seven independent per-language BM25 models with docid maps; queries are
 grouped by language, tokenized, padded to a bucketed batch size (1, 8,
 then ``query_batch``) and scored on the models' device.  Every batch is
 dispatched before any result is read; the results then come back in ONE
-device→host copy per ``retrieve``.
+device→host copy per ``retrieve``.  The host also waits on the device
+inside each batch: the query tensors' two host→device copies and the
+overflow flag's read (``tdr_torch.sync.*`` spans name each wait while a
+profiler records).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from tdr_torch.text.preprocess import Preprocessor
 from tdr_torch.text.vocab import build_vocab, encode_docs
 from tdr_torch.utils.config import BM25Config, IndexConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
-from tdr_torch.utils.trace import Tracer, log
+from tdr_torch.utils.trace import Tracer, annotate, count, log
 
 
 def build_language_models(
@@ -204,7 +207,9 @@ def _gather_results(vals_list: List[torch.Tensor], rows_list: List[torch.Tensor]
     slabs = [floats(vals_list), torch.stack(rows)]
     if extra_list is not None:
         slabs.append(floats(extra_list))
-    host = torch.stack(slabs).cpu().numpy()
+    stacked = torch.stack(slabs)
+    with annotate("tdr_torch.sync.results"):
+        host = stacked.cpu().numpy()
     out = (host[0].view(np.float32), host[1])
     return out if extra_list is None else out + (host[2].view(np.float32),)
 
@@ -226,28 +231,32 @@ class LanguageRouter:
 
     def _tokenize(self, queries: Sequence[str], q_idx: Sequence[int],
                   lang: str) -> List[List[str]]:
-        if self.use_native and self.preprocessor.spec.name == "best":
-            from tdr_torch.text.fast import fast_available
+        with annotate("tdr_torch.router.tokenize"):
+            if self.use_native and self.preprocessor.spec.name == "best":
+                from tdr_torch.text.fast import fast_available
 
-            if fast_available():
-                from tdr_torch.text.fast import fast_tokenize_texts
+                if fast_available():
+                    from tdr_torch.text.fast import fast_tokenize_texts
 
-                return fast_tokenize_texts([queries[i] for i in q_idx], lang)
-        return [self.preprocessor(queries[i], lang) for i in q_idx]
+                    return fast_tokenize_texts([queries[i] for i in q_idx],
+                                               lang)
+            return [self.preprocessor(queries[i], lang) for i in q_idx]
 
     def _group(self, langs: Optional[Sequence[str]],
                queries: Sequence[str]) -> Dict[str, List[int]]:
         groups: Dict[str, List[int]] = {}
-        for i in range(len(queries)):
-            lang = langs[i] if langs is not None else None
-            if lang is None or lang == "" or lang not in self.models:
-                if self.detect_missing_lang:
-                    from tdr_torch.text.langid import detect_language
+        with annotate("tdr_torch.router.group"):
+            for i in range(len(queries)):
+                lang = langs[i] if langs is not None else None
+                if lang is None or lang == "" or lang not in self.models:
+                    if self.detect_missing_lang:
+                        from tdr_torch.text.langid import detect_language
 
-                    lang = detect_language(queries[i], default=self.default_lang)
-                if lang not in self.models:
-                    lang = self.default_lang
-            groups.setdefault(lang, []).append(i)
+                        lang = detect_language(queries[i],
+                                               default=self.default_lang)
+                    if lang not in self.models:
+                        lang = self.default_lang
+                groups.setdefault(lang, []).append(i)
         return groups
 
     def _pad_target(self, n: int) -> int:
@@ -270,6 +279,8 @@ class LanguageRouter:
                 chunk = toks[s:s + self.query_batch]
                 sel = q_idx[s:s + self.query_batch]
                 pad_to = self._pad_target(len(chunk))
+                count("router.rows_real", len(chunk))
+                count("router.rows_padded", pad_to)
                 if hasattr(model, "topk_tokens_async"):
                     vals, rows, n = model.topk_tokens_async(chunk, k,
                                                             pad_to=pad_to)
@@ -290,35 +301,42 @@ class LanguageRouter:
     def _map_docids(model, vals: np.ndarray, rows: np.ndarray) -> List[List[str]]:
         """(n, k) rows → docid lists via one object-array gather; -inf pad
         entries are dropped."""
-        arr = getattr(model, "_docid_arr", None)
-        if arr is None or len(arr) != len(model.docids):
-            arr = np.asarray(model.docids, dtype=object)
-            model._docid_arr = arr
-        names = arr[np.clip(rows, 0, len(arr) - 1)]
-        finite = np.isfinite(vals)
-        if bool(finite.all()):
-            return [row.tolist() for row in names]
-        return [names[j][finite[j]].tolist() for j in range(names.shape[0])]
+        with annotate("tdr_torch.router.map_docids"):
+            arr = getattr(model, "_docid_arr", None)
+            if arr is None or len(arr) != len(model.docids):
+                arr = np.asarray(model.docids, dtype=object)
+                model._docid_arr = arr
+            names = arr[np.clip(rows, 0, len(arr) - 1)]
+            finite = np.isfinite(vals)
+            if bool(finite.all()):
+                return [row.tolist() for row in names]
+            return [names[j][finite[j]].tolist()
+                    for j in range(names.shape[0])]
 
     def retrieve(self, queries: Sequence[str],
                  langs: Optional[Sequence[str]] = None,
                  k: int = 10) -> List[List[str]]:
         """Top-k docids per query, in input order.  ``langs=None`` (or
         unknown codes) routes by detected language."""
-        results: List[Optional[List[str]]] = [None] * len(queries)
-        for model, sel, vals, rows in self._batches_resolved(queries, langs, k):
-            for j, docs in zip(sel, self._map_docids(model, vals, rows)):
-                results[j] = docs
-        return [r if r is not None else [] for r in results]
+        with annotate("tdr_torch.router.retrieve"):
+            results: List[Optional[List[str]]] = [None] * len(queries)
+            for model, sel, vals, rows in self._batches_resolved(queries,
+                                                                 langs, k):
+                for j, docs in zip(sel, self._map_docids(model, vals, rows)):
+                    results[j] = docs
+            return [r if r is not None else [] for r in results]
 
     def retrieve_with_scores(self, queries: Sequence[str],
                              langs: Optional[Sequence[str]] = None,
                              k: int = 10) -> Tuple[List[List[str]], np.ndarray]:
-        docid_out: List[Optional[List[str]]] = [None] * len(queries)
-        score_out = np.zeros((len(queries), k), np.float32)
-        for model, sel, vals, rows in self._batches_resolved(queries, langs, k):
-            docs_rows = self._map_docids(model, vals, rows)
-            for i, j in enumerate(sel):
-                docid_out[j] = docs_rows[i]
-                score_out[j] = vals[i]
-        return [r if r is not None else [] for r in docid_out], score_out
+        with annotate("tdr_torch.router.retrieve"):
+            docid_out: List[Optional[List[str]]] = [None] * len(queries)
+            score_out = np.zeros((len(queries), k), np.float32)
+            for model, sel, vals, rows in self._batches_resolved(queries,
+                                                                 langs, k):
+                docs_rows = self._map_docids(model, vals, rows)
+                for i, j in enumerate(sel):
+                    docid_out[j] = docs_rows[i]
+                    score_out[j] = vals[i]
+            return ([r if r is not None else [] for r in docid_out],
+                    score_out)

@@ -47,7 +47,7 @@ from tdr_torch.parallel import train as tp
 from tdr_torch.parallel.mesh import Mesh, _copy, data_sharding
 from tdr_torch.utils.config import DenseConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
-from tdr_torch.utils.trace import log
+from tdr_torch.utils.trace import annotate, log
 
 ADAM_BETAS = (0.9, 0.999)          # optax.adamw's defaults
 ADAM_EPS = 1e-8
@@ -157,13 +157,19 @@ def contrastive_loss(
 def _stacked(batch: Mapping, dev: torch.device):
     """The batch's queries, positives and flattened negatives as one (ids,
     mask) pair of row blocks on ``dev`` (each row is encoded alone, so one
-    forward is three forwards' results)."""
+    forward is three forwards' results).  A copy from pageable host memory
+    waits for the device's stream."""
     L = batch["q_ids"].shape[1]
     parts = [("q_ids", "q_mask"), ("p_ids", "p_mask")]
     if "n_ids" in batch:
         parts.append(("n_ids", "n_mask"))
-    return tuple(torch.cat([torch.as_tensor(batch[p[j]]).reshape(-1, L)
-                            for p in parts]).to(dev) for j in (0, 1))
+    out = []
+    for j in (0, 1):
+        block = torch.cat([torch.as_tensor(batch[p[j]]).reshape(-1, L)
+                           for p in parts])
+        with annotate("tdr_torch.sync.batch_h2d"):
+            out.append(block.to(dev))
+    return tuple(out)
 
 
 def _split(emb: torch.Tensor, B: int, with_neg: bool):
@@ -191,10 +197,14 @@ def make_train_step(temperature: float = 0.05):
         if isinstance(state, ShardedTrainState):
             return _sharded_step(state, batch, temperature)
         with ieee_f32():
-            loss, metrics = batch_loss(state.model, batch, temperature)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            state.optimizer.step()
+            with annotate("tdr_torch.train.forward"):
+                loss, metrics = batch_loss(state.model, batch, temperature)
+            with annotate("tdr_torch.train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with annotate("tdr_torch.train.backward"):
+                loss.backward()
+            with annotate("tdr_torch.train.optimizer"):
+                state.optimizer.step()
         state.step += 1
         return state, metrics
 

@@ -5,6 +5,13 @@ The reference's de-facto tracer is ``time.time()`` deltas + tqdm bars
 (final_implementation.py:333-368; SURVEY.md §5 "Tracing / profiling").  Here:
 a structured per-phase wall-clock tracer that nests, records a span tree, and
 can emit `torch.profiler` traces for device phases.
+
+The program's own spans and counters (``annotate``, ``count``) exist only
+while a ``torch.profiler`` session records: a span is then a host op in
+the same trace as the kernels, on the profiler's clock, and a counter adds.
+With no profiler running, ``annotate`` hands back one shared null context
+and ``count`` does nothing, so the hot paths pay a flag read for each.
+Neither reads the device.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import logging
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
 
 log = logging.getLogger("tdr")
 if not log.handlers:
@@ -102,11 +111,31 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named device-trace region (torch.profiler.record_function)."""
-    import torch
+_profiling = torch.autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
 
-    return torch.profiler.record_function(name)
+# the counters' totals over every part of the process a profiler recorded
+counters: Dict[str, int] = {}
+
+
+def annotate(name: str):
+    """Named device-trace region: ``torch.profiler.record_function(name)``
+    while a profiler records, else a shared null context (no host op, no
+    cost beyond the check)."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to ``counters[name]`` while a profiler records; else does
+    nothing.  ``n`` is a host number: a counter never reads the device."""
+    if _profiling():
+        counters[name] = counters.get(name, 0) + n
+
+
+def reset_counters() -> None:
+    counters.clear()
 
 
 @contextlib.contextmanager
