@@ -33,6 +33,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
 3c. K4 (head_scores) against its plain version on the en and de heads at
    Q = 1, 8 and 256, with a query of more than 16 head terms; its launch
    count comes from one Q=256 call (no main path drives it);
+3d. the encoder's LayerNorm kernels, forward and backward, against their
+   plain versions (``layer_norm_plain``, ``layer_norm_backward_plain``) at
+   the train path's shape (262,144 x 384 bf16, eps 1e-6) and at BERT's
+   (65,536 x 768 f32, eps 1e-12), with constant rows, timed beside their
+   bounds, the plain versions, the plain forward with autograd's backward,
+   and ``F.layer_norm`` (a yardstick: the port never calls it); one train
+   step at ``DenseConfig()`` width launches each 13 times;
 4. the sparse main path: ``LanguageRouter.retrieve`` over all queries,
    launch counts set to 0 just before one pass and read just after, then
    timed passes; queries/s and hard recall@10;
@@ -166,7 +173,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
 
 Each kernel must have launched in the pass that drives it.
 The second-to-last line is the ``{"kernels": [...]}`` JSON (K1, K2, K2 f32,
-K3, K3 f32, K4); the last line is
+K3, K3 f32, K4, the LayerNorm's forward and backward); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``tdr``.
 """
 
@@ -804,6 +811,183 @@ def check_head_scores(index, qids, qw, label, reps=10):
                 replaces="tdr/ops/pallas_score.py:110", launches=0,
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _ln_scale(t):
+    return float(t.abs().max())
+
+
+def check_layer_norm(x, eps, label, reps=20, seed=0):
+    """The LayerNorm kernels (``tdr_torch/csrc/layer_norm.cu``) on ``x``
+    (rows, D) against the plain versions on the card, then timed beside
+    their bounds.  Returns the forward's and the backward's records.
+
+    Tolerances, from f32 sums taken in another order (each kernel's sums
+    run per lane in sequence, then a butterfly over the lanes; torch's
+    reductions run in a tree), never from a precision of their own:
+
+    * y: the mean and E[x²] each within a few ulps of a sum of D terms,
+      moved by x-hat (|x-hat| < sqrt(D)): 1e-5 of the largest |y|, plus
+      1e-5 relative;
+    * dx: the two row sums of the closed form likewise, times rstd:
+      1e-5 of the largest |dx|; dx in bf16 may also round one bf16 step
+      (2^-8 relative) the other way from a value next to a rounding point,
+      so bf16 adds 2^-7 relative;
+    * dweight, dbias: sums over all the rows (the kernel: a lane's rows in
+      sequence, its block's groups, then the blocks), within 256 ulps of
+      the column's sum of absolute terms, the worst case of sums of these
+      lengths;
+    * constant rows: the kernel's y is the bias, bit for bit (its sums of
+      equal short values are exact, so x - mean and E[x²] - mean² are 0);
+      torch's mean multiplies by a rounded 1/D, so the plain version's is
+      not.
+    """
+    import torch
+    from tdr_torch.models.encoder import (layer_norm_backward_plain,
+                                          layer_norm_plain)
+    from tdr_torch.ops import layer_norm as lnk
+
+    rows, D = x.shape
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    w = 1.0 + 0.5 * torch.randn(D, generator=gen, device=x.device)
+    b = 0.2 * torch.randn(D, generator=gen, device=x.device)
+    dy = torch.randn(rows, D, generator=gen, device=x.device)
+    y, stats = lnk.layer_norm_fwd(x, w, b, eps)
+    dx, dw, db = lnk.layer_norm_bwd(dy, x, w, stats)
+    y_p = layer_norm_plain(x, w, b, eps)
+    dx_p, dw_p, db_p = layer_norm_backward_plain(dy, x, w, eps)
+    torch.cuda.synchronize()
+    if y.dtype != torch.float32 or dx.dtype != x.dtype:
+        fail(f"layer_norm {label}: y {y.dtype}, dx {dx.dtype}")
+    err_y = (y - y_p).abs()
+    tol_y = 1e-5 * _ln_scale(y_p) + 1e-5 * y_p.abs()
+    need(bool((err_y <= tol_y).all()),
+         f"layer_norm {label}: forward off by {_ln_scale(err_y):.3e}")
+    err_dx = (dx.float() - dx_p.float()).abs()
+    rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 0.0
+    tol_dx = 1e-5 * _ln_scale(dx_p.float()) + rel * dx_p.float().abs()
+    need(bool((err_dx <= tol_dx).all()),
+         f"layer_norm {label}: dx off by {_ln_scale(err_dx):.3e}")
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    raw = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    xh = (xf - mu) * torch.rsqrt(raw.clamp_min(0.0) + eps)
+    for name, got, want, terms in (("dweight", dw, dw_p, dy * xh),
+                                   ("dbias", db, db_p, dy)):
+        bound = 256 * 2.0 ** -24 * terms.abs().sum(0)
+        need(bool(((got - want).abs() <= bound).all()),
+             f"layer_norm {label}: {name} off by "
+             f"{_ln_scale(got - want):.3e}")
+    # constant rows, and the statistics of the random ones
+    const = (torch.arange(64, device=x.device, dtype=torch.float32)[:, None]
+             / 8 - 3).expand(64, D).to(x.dtype).contiguous()
+    yc, sc = lnk.layer_norm_fwd(const, w, b, eps)
+    need(torch.equal(yc, b.expand(64, D)) and bool((sc[:, 1] > 0).all()),
+         f"layer_norm {label}: constant rows are not the bias")
+    err_mu = _ln_scale(stats[:, 0] - mu[:, 0])
+    need(bool((stats[:, 1] > 0).all()) and err_mu <= 1e-5 * _ln_scale(mu)
+         + 1e-6, f"layer_norm {label}: statistics off (mean {err_mu:.3e})")
+
+    from torch.nn import functional as F
+
+    def autograd_plain():
+        xa = x.detach().requires_grad_()
+        wa, ba = w.detach().requires_grad_(), b.detach().requires_grad_()
+        torch.autograd.grad(layer_norm_plain(xa, wa, ba, eps), (xa, wa, ba),
+                            dy)
+
+    # torch's own LayerNorm wants its parameters in x's dtype on the card,
+    # and then writes y in x's dtype: a yardstick, not the same function
+    w_l, b_l, dy_l = w.to(x.dtype), b.to(x.dtype), dy.to(x.dtype)
+
+    def library_fwd():
+        F.layer_norm(x, (D,), w_l, b_l, eps)
+
+    def library():
+        xa = x.detach().requires_grad_()
+        wa, ba = w_l.detach().requires_grad_(), b_l.detach().requires_grad_()
+        out = F.layer_norm(xa, (D,), wa, ba, eps)
+        torch.autograd.grad(out, (xa, wa, ba), dy_l)
+
+    ms_f = time_ms(lambda: lnk.layer_norm_fwd(x, w, b, eps), reps)
+    ms_b = time_ms(lambda: lnk.layer_norm_bwd(dy, x, w, stats), reps)
+    plain_f = time_ms(lambda: layer_norm_plain(x, w, b, eps), 5, warmup=1)
+    plain_b = time_ms(lambda: layer_norm_backward_plain(dy, x, w, eps), 5,
+                      warmup=1)
+    plain_both = time_ms(autograd_plain, 5, warmup=1)
+    lib_f = time_ms(library_fwd, reps)
+    lib_both = time_ms(library, reps)
+    e = x.element_size()
+    bytes_f = rows * D * (e + 4) + rows * 8 + 2 * D * 4
+    bytes_b = rows * D * (e + 4 + e) + rows * 8 + 3 * D * 4
+    bound_f = bytes_f / PEAK_BYTES_PER_S * 1e3
+    bound_b = bytes_b / PEAK_BYTES_PER_S * 1e3
+    say(f"[layer_norm {label}] ({rows}, {D}) {x.dtype}, eps {eps:g}: within "
+        f"tolerance; fwd kernel_ms={ms_f:.5f} bound_ms={bound_f:.5f} "
+        f"({100 * bound_f / ms_f:.1f}% of it) plain_ms={plain_f:.5f} "
+        f"library_ms={lib_f:.5f}; bwd kernel_ms={ms_b:.5f} "
+        f"bound_ms={bound_b:.5f} ({100 * bound_b / ms_b:.1f}%) "
+        f"plain_ms={plain_b:.5f}; plain forward + autograd backward "
+        f"{plain_both:.5f} ms, F.layer_norm forward + backward "
+        f"{lib_both:.5f} ms; max err y {_ln_scale(err_y):.3e}, dx "
+        f"{_ln_scale(err_dx):.3e}, dweight {_ln_scale(dw - dw_p):.3e}, "
+        f"dbias {_ln_scale(db - db_p):.3e}")
+    common = dict(route="cuda", source="tdr_torch/csrc/layer_norm.cu",
+                  replaces="none (XLA fused tdr's LayerNorm)", shape=label,
+                  bound_by="bytes", launches=0)
+    return (dict(common, name="layer_norm_fwd", ms=ms_f, plain_ms=plain_f,
+                 bound_ms=bound_f, library_ms=lib_f,
+                 max_abs_err=_ln_scale(err_y)),
+            dict(common, name="layer_norm_bwd", ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bound_b, library_ms=lib_both - lib_f,
+                 plain_autograd_fwd_bwd_ms=plain_both,
+                 max_abs_err=_ln_scale(err_dx)))
+
+
+def layer_norm_phase(reps=20):
+    """Phase 3d: the LayerNorm kernels against their plain versions at the
+    train path's shape (262,144 x 384 bf16, eps 1e-6) and at BERT's (the
+    converter's, 65,536 x 768 f32, eps 1e-12), with times; then one train
+    step at ``DenseConfig()`` width launches each kernel 13 times (2 a
+    block, 6 blocks, and the last).  Returns the train shape's records."""
+    import numpy as np
+    import torch
+    from tdr_torch.train import create_train_state, make_train_step
+    from tdr_torch.utils.config import DenseConfig
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn(2048 * 128, 384, generator=gen, device=DEVICE)
+    recs = check_layer_norm((x * 0.7 + 0.3).to(torch.bfloat16), 1e-6,
+                            "train 262144x384 bf16")
+    del x
+    x = torch.randn(512 * 128, 768, generator=gen, device=DEVICE)
+    check_layer_norm(x, 1e-12, "bert 65536x768 f32", seed=1)
+    del x
+    cfg = DenseConfig()
+    state = create_train_state(cfg, lr=2e-5, seed=0, device=DEVICE)
+    rng = np.random.RandomState(0)
+    B, L = 8, cfg.max_len
+    batch = {"q_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
+             "q_mask": np.ones((B, L), np.int32),
+             "p_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
+             "p_mask": np.ones((B, L), np.int32)}
+    step = make_train_step()
+    step(state, batch)
+    _, counts = counted(lambda: step(state, batch))
+    want = 2 * cfg.depth + 1
+    need(counts["layer_norm_fwd"] == want and counts["layer_norm_bwd"] == want,
+         f"one train step launched the LayerNorm kernels "
+         f"{counts['layer_norm_fwd']} and {counts['layer_norm_bwd']} times, "
+         f"not {want}")
+    say(f"one train step at DenseConfig() width: layer_norm_fwd "
+        f"{counts['layer_norm_fwd']}, layer_norm_bwd "
+        f"{counts['layer_norm_bwd']} launches")
+    for rec in recs:
+        rec["launches"] = counts[rec["name"]]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
 
 
 def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
@@ -3371,6 +3555,9 @@ def main() -> None:
                 rec_k4 = rec
     rec_k4["launches"] = k4_launches
 
+    # -- phase 3d: the encoder's LayerNorm kernels ---------------------------
+    rec_ln = layer_norm_phase()
+
     # -- phase 4: the main path ----------------------------------------------
     cuda_build.reset_launches()
     router.retrieve(queries.queries, queries.langs, k=10)
@@ -3544,7 +3731,7 @@ def main() -> None:
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,
-                                rec_k4]}))
+                                rec_k4, *rec_ln]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

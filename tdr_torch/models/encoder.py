@@ -7,7 +7,9 @@ same rounding points:
 * parameters are kept in f32 and cast to the compute dtype (bf16 by default)
   at each use, as flax's ``dtype=`` does;
 * LayerNorm runs in f32 with epsilon 1e-6 and flax's fast variance
-  (``E[x²] - E[x]²``, clamped at 0), and returns f32;
+  (``E[x²] - E[x]²``, clamped at 0), and returns f32; on the card it is one
+  hand-written kernel each way (``ops.layer_norm``), on the CPU the plain
+  ops;
 * a dense layer rounds its product to the compute dtype, then adds the bias
   in that dtype;
 * attention divides the *query* by ``sqrt(head_dim)`` in the compute dtype,
@@ -28,16 +30,18 @@ across, so the two forwards can be compared on the same weights.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tdr_torch.ops import layer_norm as ln_kernels
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.utils.config import DenseConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
+from tdr_torch.utils.trace import count
 
 _LN_EPS = 1e-6
 
@@ -90,13 +94,79 @@ def mlp_hidden(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return F.gelu(linear(x, weight, bias, dtype), approximate="tanh")
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = _LN_EPS) -> torch.Tensor:
-    x = x.float()
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for bf16 and f32 inputs (f64 stays f64, for the tests)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = _LN_EPS) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)`` in plain torch ops: the CPU
+    path, and what the CUDA kernels compute."""
+    x = x.to(_compute_dtype(x))
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
     mul = torch.rsqrt(var + eps) * weight
     return (x - mu) * mul + bias
+
+
+def layer_norm_backward_plain(dy: torch.Tensor, x: torch.Tensor,
+                              weight: torch.Tensor, eps: float = _LN_EPS
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The gradients of ``layer_norm_plain`` in closed form, (dx in x's
+    dtype, dweight, dbias), with the backward kernel's arithmetic: with
+    ``xh = (x - mean) * rstd`` and ``g = dy * weight``, ``dx = ((g -
+    mean(g)) - xh * mean(g * xh)) * rstd``, the ``xh`` term dropped where
+    the variance's clamp at 0 is active (no gradient flows through the
+    variance there, as ``clamp_min``'s backward); ``dweight`` sums ``dy *
+    xh`` over the rows, ``dbias`` sums ``dy``."""
+    xf = x.to(_compute_dtype(x))
+    dy = dy.to(xf.dtype)
+    mu = xf.mean(dim=-1, keepdim=True)
+    raw = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
+    rstd = torch.rsqrt(raw.clamp_min(0.0) + eps)
+    xh = (xf - mu) * rstd
+    g = dy * weight
+    c2 = torch.where(raw < 0, 0.0, (g * xh).mean(dim=-1, keepdim=True))
+    dx = ((g - g.mean(dim=-1, keepdim=True)) - xh * c2) * rstd
+    rows = tuple(range(dy.dim() - 1))
+    return dx.to(x.dtype), (dy * xh).sum(dim=rows), dy.sum(dim=rows)
+
+
+class _LayerNormKernel(torch.autograd.Function):
+    """``layer_norm_plain`` as the two CUDA kernels of
+    ``tdr_torch.ops.layer_norm``: the backward recomputes x-hat from x and
+    each row's saved mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        y, stats = ln_kernels.layer_norm_fwd(x, weight, bias, eps)
+        ctx.save_for_backward(x, weight, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, stats = ctx.saved_tensors
+        dx, dw, db = ln_kernels.layer_norm_bwd(dy.contiguous(), x, weight,
+                                               stats)
+        return dx, dw, db, None
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = _LN_EPS) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)`` over the last axis, f32 out: the
+    CUDA kernels on a CUDA tensor (bf16 or f32, width a multiple of 4 up to
+    8,192, or it raises), ``layer_norm_plain`` on a CPU tensor.  While a
+    profiler records, counts the rows under ``encoder.ln_rows``, and those
+    the kernels took under ``encoder.ln_rows_kernel``."""
+    rows = math.prod(x.shape[:-1])
+    count("encoder.ln_rows", rows)
+    if not x.is_cuda:
+        return layer_norm_plain(x, weight, bias, eps)
+    y = _LayerNormKernel.apply(x, weight, bias, eps)
+    count("encoder.ln_rows_kernel", rows)
+    return y
 
 
 class LayerNorm(nn.Module):

@@ -16,7 +16,9 @@ mesh shard or a pipeline stage on another card).
 ``launches`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one where it launches its kernel and nowhere else.  The f32 bodies of
 K2 and K3 count under their own names (``fused_head_f32``,
-``fused_flat_f32``).
+``fused_flat_f32``); the LayerNorm's two wrappers as ``layer_norm_fwd`` and
+``layer_norm_bwd``, one a call (the backward's call launches its kernel and
+the reduction of its partial sums).
 """
 
 from __future__ import annotations
@@ -33,14 +35,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 SOURCES = ("tail_compact.cu", "fused_head.cu", "fused_flat.cu",
-           "head_scores.cu")
+           "head_scores.cu", "layer_norm.cu")
 HEADERS = ("hopper.cuh",)     # included by the sources: a change rebuilds all
 LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0,
                             "fused_head_f32": 0, "fused_flat": 0,
-                            "fused_flat_f32": 0, "head_scores": 0}
+                            "fused_flat_f32": 0, "head_scores": 0,
+                            "layer_norm_fwd": 0, "layer_norm_bwd": 0}
 build_log: str = ""
 build_seconds: Optional[float] = None
 
@@ -59,6 +62,10 @@ _SIGNATURES = {
     "tdr_fused_flat_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "tdr_head_scores_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdr_head_scores_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tdr_layer_norm_fwd": [_P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
+    "tdr_layer_norm_bwd_blocks": [_I, _I, _P],
+    "tdr_layer_norm_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                           _P],
 }
 
 
