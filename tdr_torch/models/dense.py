@@ -518,10 +518,12 @@ def _encode_texts(model: torch.nn.Module, cfg: DenseConfig,
 class DenseModel:
     """Encoder + corpus embedding index, mirroring the reference's
     embed-then-FAISS pipeline as one object.  The encoder is the trainable
-    ``DualEncoder`` or the HF-architecture ``BertEncoder``
-    (``models.convert``); it holds its own weights (``tdr`` passes a flax
+    ``DualEncoder``, the HF-architecture ``BertEncoder``
+    (``models.convert``) or the MLA + MoE ``MlaMoeEncoder``
+    (``models.mla_moe``); it holds its own weights (``tdr`` passes a flax
     param tree beside the module).  ``cfg`` gives the tokenizer's vocab and
-    ``max_len`` and the embedding width."""
+    ``max_len`` and the embedding width (a ``DenseConfig``, or the
+    ``MlaMoeConfig`` itself)."""
 
     model: torch.nn.Module
     cfg: DenseConfig

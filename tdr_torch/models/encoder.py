@@ -338,7 +338,7 @@ def module_device(model: nn.Module) -> torch.device:
 def encode(model: nn.Module, ids, mask) -> torch.Tensor:
     """(B, L) ids and mask (numpy or tensors) → (B, dim) f32 embeddings on
     the model's device, for any encoder module (``DualEncoder``,
-    ``convert.BertEncoder``)."""
+    ``convert.BertEncoder``, ``mla_moe.MlaMoeEncoder``)."""
     dev = module_device(model)
     with torch.inference_mode():
         return model(torch.as_tensor(ids, device=dev),

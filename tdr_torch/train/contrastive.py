@@ -4,8 +4,9 @@ InfoNCE over in-batch negatives plus each query's explicit hard negatives,
 with AdamW, on one device or sharded over a mesh.  What ``tdr`` computes,
 in torch idiom:
 
-* ``TrainState`` holds the ``DualEncoder``, its ``torch.optim.AdamW`` and the
-  step count;
+* ``TrainState`` holds the encoder (a ``DualEncoder``, or the MLA + MoE
+  ``MlaMoeEncoder`` of ``models.mla_moe``), its ``torch.optim.AdamW`` and
+  the step count;
 * ``optax.adamw(lr, weight_decay)`` (b1 0.9, b2 0.999, eps 1e-8, decay on
   every parameter, LayerNorm and biases included) is ``torch.optim.AdamW``
   with the same constants: the same update in another order of operations,
@@ -14,12 +15,15 @@ in torch idiom:
   ``nu`` -> ``exp_avg_sq`` (``train_state_from_optax``, ``adam_moments``);
 * the step (forward, loss, backward, optimizer update) runs inside
   ``ieee_f32()``: at ``dtype="float32"`` its products are full IEEE f32
-  whatever the caller's TF32 setting, the backward's and the loss's too.
+  whatever the caller's TF32 setting, the backward's and the loss's too;
+* an encoder with a ``forward_with_aux`` (the MoE's) returns its auxiliary
+  loss beside the embeddings, and the step adds it to InfoNCE.
 
-The sharded step is ``tdr``'s ``shard_train_state`` path over a DP x TP
-mesh (``tdr_torch.parallel.mesh``): ``shard_train_state`` lays a
-``TrainState`` out as a ``ShardedTrainState`` (each shard's parameter
-slices and their AdamW moments on its device, ``param_shardings``),
+The sharded step (``DualEncoder`` only) is ``tdr``'s ``shard_train_state``
+path over a DP x TP mesh (``tdr_torch.parallel.mesh``):
+``shard_train_state`` lays a ``TrainState`` out as a ``ShardedTrainState``
+(each shard's parameter slices and their AdamW moments on its device,
+``param_shardings``),
 and the same ``make_train_step`` runs it on a whole batch: ``shard_batch``
 splits the batch over "data", the tensor-parallel forward
 (``models.encoder.encode_shards``) encodes each data shard's rows, the
@@ -38,14 +42,16 @@ from typing import (Dict, Iterable, Iterator, List, Mapping, Optional, Tuple,
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from tdr_torch.models.encoder import (DualEncoder, encode_shards,
                                       encoder_state_from_flax, init_encoder,
                                       module_device)
+from tdr_torch.models.mla_moe import init_mla_moe
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.parallel import train as tp
 from tdr_torch.parallel.mesh import Mesh, _copy, data_sharding
-from tdr_torch.utils.config import DenseConfig
+from tdr_torch.utils.config import DenseConfig, MlaMoeConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
 from tdr_torch.utils.trace import annotate, log
 
@@ -55,21 +61,28 @@ ADAM_EPS = 1e-8
 
 @dataclass
 class TrainState:
-    model: DualEncoder
+    model: nn.Module
     optimizer: torch.optim.AdamW
     step: int = 0
 
 
-def _adamw(model: DualEncoder, lr: float,
+def _adamw(model: nn.Module, lr: float,
            weight_decay: float) -> torch.optim.AdamW:
     return torch.optim.AdamW(model.parameters(), lr=lr, betas=ADAM_BETAS,
                              eps=ADAM_EPS, weight_decay=weight_decay)
 
 
-def create_train_state(cfg: DenseConfig, lr: float = 3e-4,
-                       weight_decay: float = 0.01, seed: int = 0,
+def create_train_state(cfg: Union[DenseConfig, MlaMoeConfig],
+                       lr: float = 3e-4, weight_decay: float = 0.01,
+                       seed: int = 0,
                        device: DeviceLike = None) -> TrainState:
-    model = init_encoder(cfg, seed, device=device)
+    """A fresh encoder and its AdamW: a ``DualEncoder`` for a
+    ``DenseConfig`` (drawn on the CPU, then moved), an ``MlaMoeEncoder``
+    for an ``MlaMoeConfig`` (drawn on ``device`` itself)."""
+    if isinstance(cfg, MlaMoeConfig):
+        model = init_mla_moe(cfg, seed, device=device)
+    else:
+        model = init_encoder(cfg, seed, device=device)
     return TrainState(model, _adamw(model, lr, weight_decay))
 
 
@@ -178,13 +191,22 @@ def _split(emb: torch.Tensor, B: int, with_neg: bool):
     return q, p, n
 
 
-def batch_loss(model: DualEncoder, batch: Mapping[str, np.ndarray],
+def batch_loss(model: nn.Module, batch: Mapping[str, np.ndarray],
                temperature: float = 0.05):
     """The loss of one batch (``make_batches``' dict): one forward over the
-    queries, positives and flattened negatives together."""
-    emb = model(*_stacked(batch, module_device(model)))
+    queries, positives and flattened negatives together.  An encoder with
+    a ``forward_with_aux`` adds its auxiliary loss (the MoE's balance
+    loss): ``metrics["loss"]`` is then the sum, ``metrics["aux_loss"]``
+    the part it added."""
+    stacked = _stacked(batch, module_device(model))
+    with_aux = getattr(model, "forward_with_aux", None)
+    emb, aux = with_aux(*stacked) if with_aux else (model(*stacked), None)
     q, p, n = _split(emb, batch["q_ids"].shape[0], "n_ids" in batch)
-    return contrastive_loss(q, p, n, temperature)
+    loss, metrics = contrastive_loss(q, p, n, temperature)
+    if aux is None:
+        return loss, metrics
+    loss = loss + aux
+    return loss, dict(metrics, loss=loss.detach(), aux_loss=aux.detach())
 
 
 def make_train_step(temperature: float = 0.05):
@@ -250,7 +272,11 @@ def param_shardings(mesh: Mesh, model: DualEncoder) -> Dict[str, Spec]:
     """Each parameter's split by state-dict name, as a partition spec in
     the torch tensor's layout (``tdr``'s ``nn.with_partitioning``
     metadata, ``tp.PARAM_SPLITS``); raises where a split does not divide
-    over the mesh's "model" axis."""
+    over the mesh's "model" axis, or for an encoder other than a
+    ``DualEncoder``."""
+    if not isinstance(model, DualEncoder):
+        raise TypeError(f"the sharded train step takes a DualEncoder, not "
+                        f"a {type(model).__name__}")
     n = mesh.shape["model"]
     specs = {}
     for name, p in model.named_parameters():

@@ -4,6 +4,7 @@ from tdr_torch.utils.config import (
     DenseConfig,
     IndexConfig,
     MeshConfig,
+    MlaMoeConfig,
     RetrievalConfig,
     TdrConfig,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "DenseConfig",
     "IndexConfig",
     "MeshConfig",
+    "MlaMoeConfig",
     "RetrievalConfig",
     "TdrConfig",
     "phase_timer",

@@ -1,4 +1,5 @@
-# Copied from tdr/utils/config.py; only the imports are rewritten.
+# Copied from tdr/utils/config.py (imports rewritten), plus the port's own
+# MlaMoeConfig.
 """Single-dataclass configuration for the whole framework.
 
 The reference has no config system — constants are scattered at module tops
@@ -123,6 +124,44 @@ class DenseConfig:
     svd_dim: int = 256            # TruncatedSVD dims in the reference ANN path
     ivf_nlist: int = 64           # IVF partitions for the ANN index
     ivf_nprobe: int = 8
+
+
+@dataclass(frozen=True)
+class MlaMoeConfig:
+    """DeepSeek-V2's block as a dense retrieval encoder
+    (``tdr_torch.models.mla_moe``): multi-head latent attention with YaRN
+    rotary positions, a SiLU-gated MLP in the first ``first_dense`` layers
+    and routed plus shared SiLU-gated experts after them, last-token
+    pooling.  The defaults are DeepSeek-V2-Lite's published config
+    (huggingface.co/deepseek-ai/DeepSeek-V2-Lite, ``config.json``) under
+    the port's names; ``max_len`` is the tokenizer's sequence length.
+    ``vocab_size``, ``dim`` and ``max_len`` are named as ``DenseConfig``'s,
+    so ``DenseModel`` hashes texts for either."""
+
+    vocab_size: int = 102_400
+    dim: int = 2048                  # hidden_size
+    depth: int = 27                  # num_hidden_layers
+    heads: int = 16
+    kv_lora_rank: int = 512          # the latent KV width
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    dense_hidden: int = 10_944       # intermediate_size
+    first_dense: int = 1             # first_k_dense_replace
+    n_experts: int = 64              # n_routed_experts
+    top_k: int = 6                   # num_experts_per_tok
+    expert_hidden: int = 1408        # moe_intermediate_size
+    n_shared: int = 2                # n_shared_experts
+    rope_theta: float = 10_000.0
+    rope_factor: float = 40.0        # YaRN's scaling factor
+    rope_original_max: int = 4096    # original_max_position_embeddings
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale_all_dim: float = 0.707    # 0: no YaRN factor on the scores
+    rms_eps: float = 1e-6
+    aux_alpha: float = 0.001         # the sequence-level balance loss's weight
+    max_len: int = 256
+    dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
