@@ -40,6 +40,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
    bounds, the plain versions, the plain forward with autograd's backward,
    and ``F.layer_norm`` (a yardstick: the port never calls it); one train
    step at ``DenseConfig()`` width launches each 13 times;
+3e. the encoder's attention kernels, forward and backward, against their
+   plain versions (``attend_plain``, ``attend_backward_plain``) and an
+   unrounded f32 reference at the train path's shape (2,048 x 12 heads x
+   128 x 32 bf16) and at (64, 12, 512, 64), with padded rows and fully
+   padded sequences, and at small ragged shapes; timed beside their
+   bounds, the plain versions, the plain forward with autograd's backward,
+   and ``F.scaled_dot_product_attention`` (a yardstick: the port never
+   calls it); one train step launches each 6 times;
 4. the sparse main path: ``LanguageRouter.retrieve`` over all queries,
    launch counts set to 0 just before one pass and read just after, then
    timed passes; queries/s and hard recall@10;
@@ -681,10 +689,11 @@ def check_fused_flat(index, q, label, n_valid=None, reps=20):
     kv, kr = ff.fused_flat_topk(emb, q, top_k=10, metric=index.metric,
                                 n_docs=index.n_docs, doc_sq=index.doc_sq,
                                 doc_scale=index.doc_scale, n_valid=n_valid)
-    # n_valid overrides n_docs, so the plain engine sees n_docs = n_valid
+    # n_valid overrides n_docs, so the plain engine sees n_docs = n_valid;
+    # it runs 20 deep, so that a swap at rank 10 can see its partner
     plain_ix = (index if n_valid is None
                 else dataclasses.replace(index, n_docs=n_valid))
-    pv, pr = flat_search(plain_ix, q, 10, engine="plain")
+    pv, pr = flat_search(plain_ix, q, 20, engine="plain")
     kv, kr, pv, pr = (t.cpu().numpy() for t in (kv, kr, pv, pr))
     for i in range(Q):
         if not same_ranking(kr[i], kv[i], pr[i], pv[i], rtol=1e-5, atol=1e-5):
@@ -950,9 +959,7 @@ def layer_norm_phase(reps=20):
     converter's, 65,536 x 768 f32, eps 1e-12), with times; then one train
     step at ``DenseConfig()`` width launches each kernel 13 times (2 a
     block, 6 blocks, and the last).  Returns the train shape's records."""
-    import numpy as np
     import torch
-    from tdr_torch.train import create_train_state, make_train_step
     from tdr_torch.utils.config import DenseConfig
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -964,16 +971,7 @@ def layer_norm_phase(reps=20):
     check_layer_norm(x, 1e-12, "bert 65536x768 f32", seed=1)
     del x
     cfg = DenseConfig()
-    state = create_train_state(cfg, lr=2e-5, seed=0, device=DEVICE)
-    rng = np.random.RandomState(0)
-    B, L = 8, cfg.max_len
-    batch = {"q_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
-             "q_mask": np.ones((B, L), np.int32),
-             "p_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
-             "p_mask": np.ones((B, L), np.int32)}
-    step = make_train_step()
-    step(state, batch)
-    _, counts = counted(lambda: step(state, batch))
+    counts = train_step_launches(cfg)
     want = 2 * cfg.depth + 1
     need(counts["layer_norm_fwd"] == want and counts["layer_norm_bwd"] == want,
          f"one train step launched the LayerNorm kernels "
@@ -984,9 +982,211 @@ def layer_norm_phase(reps=20):
         f"{counts['layer_norm_bwd']} launches")
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
+    return recs
+
+
+def train_step_launches(cfg):
+    """The kernel launches of one train step at ``cfg``'s width (8 pairs,
+    every position valid), after a first step."""
+    import numpy as np
+    import torch
+    from tdr_torch.train import create_train_state, make_train_step
+
+    state = create_train_state(cfg, lr=2e-5, seed=0, device=DEVICE)
+    rng = np.random.RandomState(0)
+    B, L = 8, cfg.max_len
+    batch = {"q_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
+             "q_mask": np.ones((B, L), np.int32),
+             "p_ids": rng.randint(1, cfg.vocab_size, (B, L)).astype(np.int32),
+             "p_mask": np.ones((B, L), np.int32)}
+    step = make_train_step()
+    step(state, batch)
+    _, counts = counted(lambda: step(state, batch))
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+def _attention_operands(B, H, L, Dh, seed):
+    """q, k, v as (B, H, L, Dh) views of three (B, L, H * Dh) bf16
+    projections (the encoder's layout; q at twice the spread, so some rows'
+    softmax is peaked), dO (B, L, H * Dh) bf16, and each position's
+    validity: random lengths from 1 to L, the first sequence full, every
+    eighth from the second on fully padded."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = [torch.randn(B, L, H * Dh, generator=gen, device=DEVICE) * sd
+         for sd in (2.0, 1.0, 1.0)]
+    q, k, v = (t.to(torch.bfloat16).view(B, L, H, Dh).transpose(1, 2)
+               for t in x)
+    dout = torch.randn(B, L, H * Dh, generator=gen,
+                       device=DEVICE).to(torch.bfloat16)
+    lengths = torch.randint(1, L + 1, (B,), generator=gen, device=DEVICE)
+    lengths[0] = L
+    lengths[1::8] = 0
+    valid = torch.arange(L, device=DEVICE)[None, :] < lengths[:, None]
+    return q, k, v, dout, valid
+
+
+def _attention_reference(q, k, v, valid, dout):
+    """The same function in IEEE f32 with no rounding between its steps
+    (the divisor still bf16(sqrt(Dh))): the output and (dq, dk, dv)."""
+    import torch
+    from tdr_torch.models.encoder import attention_mask
+    from tdr_torch.ops.attention import scale_of
+    from tdr_torch.ops.precision import ieee_f32
+
+    B, H, L, Dh = q.shape
+    with ieee_f32():
+        qa, ka, va = (t.float().detach().requires_grad_() for t in (q, k, v))
+        s = (qa / scale_of(Dh)) @ ka.transpose(-1, -2)
+        s = s.masked_fill(~attention_mask(valid),
+                          torch.finfo(torch.bfloat16).min)
+        out = (torch.softmax(s, dim=-1) @ va).transpose(1, 2).reshape(
+            B, L, H * Dh)
+        grads = torch.autograd.grad(out, (qa, ka, va), dout.float())
+    return (out.detach(),) + grads
+
+
+def check_attention(B, H, L, Dh, label, reps=20, seed=0):
+    """The attention kernels (``tdr_torch/csrc/attention.cu``) at (B, H, L,
+    Dh) against the plain versions on the card and an unrounded f32
+    reference, then (reps > 0) timed beside their bounds.  Returns the
+    forward's and the backward's records.
+
+    Tolerances: the kernels round at the plain versions' points, so they
+    differ from them only where a sum taken in another order lands on the
+    other side of a bf16 rounding point (S, then P, O and the gradients
+    after it).  So each result's largest error against the f32 reference
+    may be at most 1.5 times the plain bf16 ops' own, plus 2^-12 of the
+    largest reference value; and exactly: a padded query row's dq is 0,
+    every value is finite (a fully padded sequence too), each row's
+    softmax sum is at least 1, and the backward repeats bit for bit.
+    """
+    import torch
+    from torch.nn import functional as F
+    from tdr_torch.models.encoder import (attend_backward_plain, attend_plain,
+                                          attention_mask)
+    from tdr_torch.ops import attention as ak
+
+    q, k, v, dout, valid = _attention_operands(B, H, L, Dh, seed)
+    out, stats = ak.attention_fwd(q, k, v, valid)
+    grads = ak.attention_bwd(dout, q, k, v, valid, stats)
+    again = ak.attention_bwd(dout, q, k, v, valid, stats)
+    plain = (attend_plain(q, k, v, valid, torch.bfloat16),
+             *attend_backward_plain(dout, q, k, v, valid))
+    ref = _attention_reference(q, k, v, valid, dout)
+    torch.cuda.synchronize()
+    got = (out, *grads)
+    if any(t.dtype != torch.bfloat16 for t in got):
+        fail(f"attention {label}: dtypes {[t.dtype for t in got]}")
+    errs = {}
+    for name, a, p, r in zip(("out", "dq", "dk", "dv"), got, plain, ref):
+        top = float(r.abs().max())
+        e_k = float((a.float() - r).abs().max())
+        e_p = float((p.float() - r).abs().max())
+        errs[name] = (e_k, e_p, float((a.float() - p.float()).abs().max()))
+        need(bool(torch.isfinite(a).all()),
+             f"attention {label}: {name} not finite")
+        need(e_k <= 1.5 * e_p + 2.0 ** -12 * top,
+             f"attention {label}: {name} off the f32 reference by {e_k:.3e}, "
+             f"the plain ops by {e_p:.3e}")
+    pad_rows = ~valid[:, None, :, None].expand_as(grads[0])
+    need(bool((grads[0][pad_rows] == 0).all()),
+         f"attention {label}: a padded query row's dq is not 0")
+    need(all(torch.equal(a, b) for a, b in zip(grads, again)),
+         f"attention {label}: the backward does not repeat bit for bit")
+    need(bool(torch.isfinite(stats).all() and (stats[..., 1] >= 1).all()),
+         f"attention {label}: softmax statistics off")
+    say(f"[attention {label}] within tolerance: max err against f32 "
+        f"(kernel, plain, kernel-plain) "
+        + ", ".join(f"{n} {a:.3e} {b:.3e} {c:.3e}"
+                    for n, (a, b, c) in errs.items()))
+    if reps <= 0:
+        return None
+
+    def forward_backward(fn, dy):
+        def run():
+            qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+            torch.autograd.grad(fn(qa, ka, va), (qa, ka, va), dy)
+        return run
+
+    mask4 = attention_mask(valid)
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask4)
+
+    ms_f = time_ms(lambda: ak.attention_fwd(q, k, v, valid), reps)
+    ms_b = time_ms(lambda: ak.attention_bwd(dout, q, k, v, valid, stats),
+                   reps)
+    plain_f = time_ms(lambda: attend_plain(q, k, v, valid, torch.bfloat16),
+                      5, warmup=1)
+    plain_b = time_ms(lambda: attend_backward_plain(dout, q, k, v, valid),
+                      5, warmup=1)
+    plain_both = time_ms(forward_backward(
+        lambda a, b, c: attend_plain(a, b, c, valid, torch.bfloat16), dout),
+        5, warmup=1)
+    lib_f = time_ms(lambda: sdpa(q, k, v), reps)
+    lib_both = time_ms(forward_backward(
+        sdpa, dout.view(B, L, H, Dh).transpose(1, 2)), reps)
+    n = B * L * H * Dh
+    bytes_f = 4 * n * 2 + B * L + B * H * L * 8
+    bytes_b = 7 * n * 2 + B * L + B * H * L * 8
+    flops_f = 4 * B * H * L * L * Dh
+    flops_b = 10 * B * H * L * L * Dh
+    bound_f = max(bytes_f / PEAK_BYTES_PER_S, flops_f / PEAK_BF16_FLOPS) * 1e3
+    bound_b = max(bytes_b / PEAK_BYTES_PER_S, flops_b / PEAK_BF16_FLOPS) * 1e3
+    by_f = "bytes" if bytes_f / PEAK_BYTES_PER_S >= flops_f / PEAK_BF16_FLOPS \
+        else "operations"
+    by_b = "bytes" if bytes_b / PEAK_BYTES_PER_S >= flops_b / PEAK_BF16_FLOPS \
+        else "operations"
+    say(f"[attention {label}] fwd kernel_ms={ms_f:.5f} bound_ms={bound_f:.5f} "
+        f"({by_f}; {100 * bound_f / ms_f:.1f}% of it) plain_ms={plain_f:.5f} "
+        f"library_ms={lib_f:.5f}; bwd kernel_ms={ms_b:.5f} "
+        f"bound_ms={bound_b:.5f} ({by_b}; {100 * bound_b / ms_b:.1f}%) "
+        f"plain_ms={plain_b:.5f}; plain forward + autograd backward "
+        f"{plain_both:.5f} ms, SDPA forward + backward {lib_both:.5f} ms")
+    common = dict(route="cuda", source="tdr_torch/csrc/attention.cu",
+                  replaces="none (XLA computes tdr's attention)", shape=label,
+                  launches=0)
+    return (dict(common, name="attention_fwd", ms=ms_f, plain_ms=plain_f,
+                 bound_ms=bound_f, bound_by=by_f, library_ms=lib_f,
+                 max_abs_err=errs["out"][2]),
+            dict(common, name="attention_bwd", ms=ms_b, plain_ms=plain_b,
+                 bound_ms=bound_b, bound_by=by_b, library_ms=lib_both - lib_f,
+                 plain_autograd_fwd_bwd_ms=plain_both,
+                 max_abs_err=max(errs[n][2] for n in ("dq", "dk", "dv"))))
+
+
+def attention_phase(reps=20):
+    """Phase 3e: the attention kernels against their plain versions and an
+    f32 reference at the train path's shape (2,048 x 12 x 128 x 32) and at
+    (64, 12, 512, 64), with times; at small ragged shapes (every head width,
+    L of 1, 32, 136 and 200) without; then one train step at
+    ``DenseConfig()`` width launches each kernel 6 times (a block each).
+    Returns the train shape's records."""
+    from tdr_torch.utils.config import DenseConfig
+
+    recs = check_attention(2048, 12, 128, 32, "train (2048, 12, 128, 32)",
+                           reps)
+    check_attention(64, 12, 512, 64, "long (64, 12, 512, 64)", reps, seed=1)
+    for i, shape in enumerate(((8, 4, 32, 16), (16, 6, 200, 32),
+                               (4, 2, 1, 64), (9, 5, 136, 64))):
+        check_attention(*shape, f"small {shape}", reps=0, seed=2 + i)
+    cfg = DenseConfig()
+    counts = train_step_launches(cfg)
+    need(counts["attention_fwd"] == cfg.depth
+         and counts["attention_bwd"] == cfg.depth,
+         f"one train step launched the attention kernels "
+         f"{counts['attention_fwd']} and {counts['attention_bwd']} times, "
+         f"not {cfg.depth}")
+    say(f"one train step at DenseConfig() width: attention_fwd "
+        f"{counts['attention_fwd']}, attention_bwd "
+        f"{counts['attention_bwd']} launches")
+    for rec in recs:
+        rec["launches"] = counts[rec["name"]]
     return recs
 
 
@@ -1112,7 +1312,8 @@ def f32_flat_phase(flat, q_enc, reps):
          f"9b: the f32 search did not run K3's f32 body once: {counts}")
     rec["launches"] = counts["fused_flat_f32"]
     med, times = timed(lambda: flat_search(f32, q_enc, 10), reps)
-    pv, pr = flat_search(f32, q_enc, 10, engine="plain")
+    # 20 deep, as in check_fused_flat
+    pv, pr = flat_search(f32, q_enc, 20, engine="plain")
     fv, fr, pv, pr = (t.cpu().numpy() for t in (fv, fr, pv, pr))
     need(bool(np.isfinite(fv).all()), "9b: non-finite scores")
     bad = lists_match(fr, fv, pr, pv, atol=1e-5)
@@ -1123,8 +1324,8 @@ def f32_flat_phase(flat, q_enc, reps):
         f"({f32.embeddings.numel() * 4 / 1e6:.1f} MB), {nq} queries: "
         f"launches {counts}; flat_search median {med * 1e3:.3f} ms of "
         f"{[round(t * 1e3, 3) for t in times]} -> {nq / med:.1f} queries/s; "
-        f"lists == the plain engine's ({int((fr != pr).sum())} rank slots "
-        f"inside near-ties)")
+        f"lists == the plain engine's "
+        f"({int((fr != pr[:, :10]).sum())} rank slots inside near-ties)")
     del f32
     return rec
 
@@ -2260,14 +2461,15 @@ def tf32_phase(f32_models, f32_ref, flat, q_enc, bench_emb, bench_q,
     def dense_pass():
         f32 = dataclasses.replace(flat, embeddings=flat.embeddings.float())
         fv, fr = flat_search(f32, q_enc, 10)
-        pv, pr = flat_search(f32, q_enc, 10, engine="plain")
+        # 20 deep, as in check_fused_flat
+        pv, pr = flat_search(f32, q_enc, 20, engine="plain")
         fv, fr, pv, pr = (t.cpu().numpy() for t in (fv, fr, pv, pr))
         need(bool(np.isfinite(fv).all()), "9c: non-finite dense scores")
         bad = lists_match(fr, fv, pr, pv, atol=1e-5)
         need(not bad, f"9c: with TF32 on, the f32 dense search differs from "
                       f"the plain engine at {len(bad)} of {fr.shape[0]} "
                       f"queries (max |score difference| "
-                      f"{np.abs(fv - pv).max():.3e}), {bad[:10]}")
+                      f"{np.abs(fv - pv[:, :10]).max():.3e}), {bad[:10]}")
 
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
@@ -3558,6 +3760,9 @@ def main() -> None:
     # -- phase 3d: the encoder's LayerNorm kernels ---------------------------
     rec_ln = layer_norm_phase()
 
+    # -- phase 3e: the encoder's attention kernels ---------------------------
+    rec_attn = attention_phase()
+
     # -- phase 4: the main path ----------------------------------------------
     cuda_build.reset_launches()
     router.retrieve(queries.queries, queries.langs, k=10)
@@ -3731,7 +3936,7 @@ def main() -> None:
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,
-                                rec_k4, *rec_ln]}))
+                                rec_k4, *rec_ln, *rec_attn]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

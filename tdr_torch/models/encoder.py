@@ -16,15 +16,16 @@ same rounding points:
   masks with ``finfo(dtype).min`` (not ``-inf``: a padded query row, whose
   keys are all masked, then gets a uniform softmax instead of NaN, and NaN
   would survive the mean pooling), and takes the softmax in the compute
-  dtype;
+  dtype; on the card in bf16 it is one hand-written kernel each way
+  (``ops.attention``), on the CPU and in f32 the plain ops;
 * GELU is the tanh approximation (flax's ``nn.gelu`` default);
 * mean pooling and the L2 normalization run in f32;
 * an f32 encoder (``cfg.dtype="float32"``) multiplies in full IEEE f32,
   whatever the caller's TF32 setting (``ops.precision.ieee_f32``).
 
-The attention is plain torch code: the JAX package computes it in XLA, outside
-any Pallas kernel.  ``encoder_state_from_flax`` carries flax parameters
-across, so the two forwards can be compared on the same weights.
+The JAX package computes LayerNorm and attention in XLA, outside any Pallas
+kernel.  ``encoder_state_from_flax`` carries flax parameters across, so the
+two forwards can be compared on the same weights.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tdr_torch.ops import attention as attn_kernels
 from tdr_torch.ops import layer_norm as ln_kernels
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.utils.config import DenseConfig
@@ -76,16 +78,89 @@ def project_heads(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return linear(y, weight, bias, dtype).view(B, L, heads, -1).transpose(1, 2)
 
 
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _query_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(math.sqrt(head_dim)).to(dtype)
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Masked softmax attention of (B, H, L, Dh) heads → (B, L, H * Dh),
-    before the output projection."""
+    before the output projection, in plain torch ops: the CPU and f32
+    path, and what the CUDA kernels compute.  ``valid`` (B, L) bool."""
     B, H, L, Dh = q.shape
-    q = q / torch.tensor(math.sqrt(Dh)).to(dtype)
+    q = q / _query_scale(Dh, dtype)
     w = q @ k.transpose(-1, -2)                             # (B, H, L, L)
-    w = w.masked_fill(~mask, torch.finfo(dtype).min)
+    w = w.masked_fill(~attention_mask(valid), torch.finfo(dtype).min)
     w = torch.softmax(w, dim=-1)
     return (w @ v).transpose(1, 2).reshape(B, L, H * Dh)
+
+
+def attend_backward_plain(dout: torch.Tensor, q: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The gradients of ``attend_plain`` in closed form, (dq, dk, dv) as
+    (B, H, L, Dh) in q's dtype from dO (B, L, H * Dh), with the backward
+    kernel's arithmetic: P recomputed as the forward makes it; ``dP = dO
+    vᵀ``, ``dv = Pᵀ dO``; ``dS = P (dP - Σⱼ P dP)`` in f32 from the
+    rounded P and dP (torch's softmax backward), 0 wherever the mask is
+    false (the masked fill's backward: a padded query row's every entry);
+    ``dq = (dS k) / scale``, ``dk = dSᵀ q_s``, each product rounded to q's
+    dtype."""
+    B, H, L, Dh = q.shape
+    dtype = q.dtype
+    f = _compute_dtype(q)
+    scale = _query_scale(Dh, dtype)
+    mask = attention_mask(valid)
+    qs = q / scale
+    s = (qs @ k.transpose(-1, -2)).masked_fill(~mask, torch.finfo(dtype).min)
+    p = torch.softmax(s, dim=-1)
+    do = dout.view(B, L, H, Dh).transpose(1, 2)
+    dp = do @ v.transpose(-1, -2)
+    pf, dpf = p.to(f), dp.to(f)
+    ds = (pf * (dpf - (pf * dpf).sum(dim=-1, keepdim=True))).to(dtype)
+    ds = ds.masked_fill(~mask, 0)
+    return ((ds @ k) / scale, ds.transpose(-1, -2) @ qs,
+            p.transpose(-1, -2) @ do)
+
+
+class _AttentionKernel(torch.autograd.Function):
+    """``attend_plain`` on bf16 heads as the two CUDA kernels of
+    ``tdr_torch.ops.attention``: the forward saves q, k, v and each row's
+    softmax max and sum, not P; the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid):
+        out, stats = attn_kernels.attention_fwd(q, k, v, valid)
+        ctx.save_for_backward(q, k, v, valid, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, valid, stats = ctx.saved_tensors
+        dq, dk, dv = attn_kernels.attention_bwd(dout.contiguous(), q, k, v,
+                                                valid, stats)
+        return dq, dk, dv, None
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Masked softmax attention of (B, H, L, Dh) heads in ``dtype`` →
+    (B, L, H * Dh), before the output projection; ``valid`` (B, L) bool
+    marks the real positions.  On CUDA in bf16 the kernels (Dh 16, 32 or
+    64, L up to 512, or it raises); on the CPU, and in f32 (the IEEE
+    reference precision, ``ops.precision.ieee_f32``) on any device,
+    ``attend_plain``.  While a profiler records, counts the query rows
+    (B x H x L) under ``encoder.attn_rows``, and those the kernels took
+    under ``encoder.attn_rows_kernel``."""
+    rows = math.prod(q.shape[:-1])
+    count("encoder.attn_rows", rows)
+    if not q.is_cuda or dtype != torch.bfloat16:
+        return attend_plain(q, k, v, valid, dtype)
+    out = _AttentionKernel.apply(q, k, v, valid)
+    count("encoder.attn_rows_kernel", rows)
+    return out
 
 
 def mlp_hidden(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -265,7 +340,7 @@ def encode_shards(shards: Sequence[Params], cfg: DenseConfig,
     heads = cfg.heads // n
     x = [embed(i, p["tok_embed.weight"], p["pos_embed"], dtype)
          for i, p in zip(ids, shards)]
-    masks = [attention_mask(mk) for mk in mask]
+    valid = [mk > 0 for mk in mask]
     for b in range(cfg.depth):
         pre = f"blocks.{b}."
         parts = []
@@ -276,7 +351,7 @@ def encode_shards(shards: Sequence[Params], cfg: DenseConfig,
                 y, p[f"{pre}attn.{w}.weight"],
                 torch.chunk(p[f"{pre}attn.{w}.bias"], n)[m], heads, dtype)
                 for w in ("query", "key", "value"))
-            parts.append(product(attend(q, k, v, masks[m], dtype),
+            parts.append(product(attend(q, k, v, valid[m], dtype),
                                  p[pre + "attn.out.weight"], dtype))
         x = residual(x, parts, pre + "attn.out.bias")
         parts = []

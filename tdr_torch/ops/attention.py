@@ -1,0 +1,148 @@
+"""The encoder's masked softmax attention as two CUDA kernels, forward and
+backward (``tdr_torch/csrc/attention.cu``).
+
+``tdr_torch.models.encoder.attend`` launches them on bf16 CUDA heads,
+through an autograd ``Function``; what they compute, and the CPU and f32
+path, are that module's plain versions, ``attend_plain`` and
+``attend_backward_plain``.  Here are the launches and the checks of their
+operands.  The forward takes q, k and v as (B, H, L, Dh) views with any
+shared strides whose rows are 16-byte aligned (the projections' (B, L,
+H * Dh) outputs, uncopied) and the (B, L) validity of each position, and
+returns the output in the (B, L, H * Dh) layout of the output projection's
+input with each row's f32 (max, sum) of the softmax; the backward takes
+them back with dO (B, L, H * Dh) and returns dq, dk and dv as (B, H, L, Dh)
+views of (B, L, H * Dh) tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from tdr_torch.ops import cuda_build
+
+MAX_L = 512
+HEAD_DIMS = (16, 32, 64)
+_TILE = 128          # rows a block's tile; longer rows need the dq scratch
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Raises ``ValueError`` unless the kernels take ``q``, ``k``, ``v``:
+    bf16 (B, H, L, Dh) with Dh in ``HEAD_DIMS`` and 1 <= L <= ``MAX_L``,
+    sharing their strides, the last one 1 and the others multiples of 8 (16
+    bytes), 16-byte aligned; and ``valid``, a contiguous (B, L) bool; all on
+    one device.  Returns (B, H, L, Dh)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.dim() != 4:
+            raise ValueError(f"attention kernel: {name} is {t.dim()}-D "
+                             f"{t.dtype}, not 4-D bfloat16")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"attention kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
+    B, H, L, Dh = q.shape
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"attention kernel: head width {Dh}; takes "
+                         f"{HEAD_DIMS}")
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"attention kernel: {L} positions; takes 1 to "
+                         f"{MAX_L}")
+    if B * H >= 2 ** 31:
+        raise ValueError(f"attention kernel: {B * H} heads; at most "
+                         f"2**31 - 1")
+    st = q.stride()
+    if k.stride() != st or v.stride() != st:
+        raise ValueError(f"attention kernel: strides q {st}, k "
+                         f"{k.stride()}, v {v.stride()} differ")
+    if st[3] != 1 or any(s % 8 or s < 0 for s in st[:3]):
+        raise ValueError(f"attention kernel: strides {st}; the last must be "
+                         f"1, the others multiples of 8")
+    if valid.dtype != torch.bool or tuple(valid.shape) != (B, L) \
+            or not valid.is_contiguous():
+        raise ValueError(f"attention kernel: valid is {tuple(valid.shape)} "
+                         f"{valid.dtype}, not a contiguous ({B}, {L}) bool")
+    for t in (q, k, v, valid):
+        if t.device != q.device:
+            raise ValueError("attention kernel: operands on "
+                             f"{q.device} and {t.device}")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("attention kernel: q, k and v must be 16-byte "
+                             "aligned")
+    return B, H, L, Dh
+
+
+def scale_of(head_dim: int) -> float:
+    """bf16(sqrt(head_dim)), the divisor of the queries, as a float."""
+    return float(torch.tensor(math.sqrt(head_dim)).to(torch.bfloat16))
+
+
+def _need_cuda(x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"attention kernel: a {x.device} tensor; CUDA "
+                         f"tensors only")
+
+
+def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    """A (B, L, H * Dh) tensor as its (B, H, L, Dh) view."""
+    B, L, _ = x.shape
+    return x.view(B, L, H, -1).transpose(1, 2)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The output (B, L, H * Dh) bf16 and the statistics (B, H, L, 2) f32."""
+    _need_cuda(q)
+    B, H, L, Dh = check_args(q, k, v, valid)
+    out = torch.empty((B, L, H * Dh), dtype=torch.bfloat16, device=q.device)
+    stats = torch.empty((B, H, L, 2), dtype=torch.float32, device=q.device)
+    if B == 0 or H == 0:
+        return out, stats
+    sb, sh, sl, _ = q.stride()
+    with torch.cuda.device(q.device):  # launches on the current device
+        err = cuda_build.lib().tdr_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sb, sh, sl,
+            valid.data_ptr(), out.data_ptr(), stats.data_ptr(), B, H, L, Dh,
+            scale_of(Dh), cuda_build.current_stream(q.device))
+    cuda_build.check(err, "attention_fwd")
+    cuda_build.launches["attention_fwd"] += 1
+    return out, stats
+
+
+def attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, valid: torch.Tensor, stats: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each (B, H, L, Dh) bf16, from dO (B, L, H * Dh) bf16,
+    contiguous, and the forward's operands and statistics."""
+    _need_cuda(q)
+    B, H, L, Dh = check_args(q, k, v, valid)
+    if (dout.dtype != torch.bfloat16 or tuple(dout.shape) != (B, L, H * Dh)
+            or not dout.is_contiguous() or dout.data_ptr() % 16
+            or dout.device != q.device):
+        raise ValueError(f"attention kernel: dO is {tuple(dout.shape)} "
+                         f"{dout.dtype}; a contiguous, 16-byte aligned "
+                         f"({B}, {L}, {H * Dh}) bfloat16 on q's device")
+    if (stats.dtype != torch.float32 or tuple(stats.shape) != (B, H, L, 2)
+            or not stats.is_contiguous() or stats.device != q.device):
+        raise ValueError(f"attention kernel: stats {tuple(stats.shape)} "
+                         f"{stats.dtype}, not the forward's")
+    grads = [torch.empty((B, L, H * Dh), dtype=torch.bfloat16,
+                         device=q.device) for _ in range(3)]
+    if B == 0 or H == 0:
+        return tuple(_heads(x, H) for x in grads)
+    # dS k summed over the key tiles in f32, for rows longer than a tile
+    part = (torch.empty((B, H, L, Dh), dtype=torch.float32, device=q.device)
+            if L > _TILE else None)
+    sb, sh, sl, _ = q.stride()
+    with torch.cuda.device(q.device):  # launches on the current device
+        err = cuda_build.lib().tdr_attention_bwd(
+            dout.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), sb,
+            sh, sl, valid.data_ptr(), stats.data_ptr(),
+            *(x.data_ptr() for x in grads),
+            None if part is None else part.data_ptr(), B, H, L, Dh,
+            scale_of(Dh), cuda_build.current_stream(q.device))
+    cuda_build.check(err, "attention_bwd")
+    cuda_build.launches["attention_bwd"] += 1
+    return tuple(_heads(x, H) for x in grads)

@@ -18,7 +18,8 @@ adds one where it launches its kernel and nowhere else.  The f32 bodies of
 K2 and K3 count under their own names (``fused_head_f32``,
 ``fused_flat_f32``); the LayerNorm's two wrappers as ``layer_norm_fwd`` and
 ``layer_norm_bwd``, one a call (the backward's call launches its kernel and
-the reduction of its partial sums).
+the reduction of its partial sums); the attention's as ``attention_fwd`` and
+``attention_bwd``, one a call.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 SOURCES = ("tail_compact.cu", "fused_head.cu", "fused_flat.cu",
-           "head_scores.cu", "layer_norm.cu")
+           "head_scores.cu", "layer_norm.cu", "attention.cu")
 HEADERS = ("hopper.cuh",)     # included by the sources: a change rebuilds all
 LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -43,7 +44,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0,
                             "fused_head_f32": 0, "fused_flat": 0,
                             "fused_flat_f32": 0, "head_scores": 0,
-                            "layer_norm_fwd": 0, "layer_norm_bwd": 0}
+                            "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+                            "attention_fwd": 0, "attention_bwd": 0}
 build_log: str = ""
 build_seconds: Optional[float] = None
 
@@ -53,6 +55,7 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "tdr_tail_compact_fused": [_P] * 10 + [_I] * 9 + [_P],
     "tdr_fused_head_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -66,6 +69,10 @@ _SIGNATURES = {
     "tdr_layer_norm_bwd_blocks": [_I, _I, _P],
     "tdr_layer_norm_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                            _P],
+    "tdr_attention_fwd": [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I,
+                          _I, _F, _P],
+    "tdr_attention_bwd": [_P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
+                          _P, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -182,7 +182,9 @@ def test_rows_are_counted_only_while_a_profiler_records():
     with profile(activities=[ProfilerActivity.CPU]):
         model(ids, mask)
     # 2 a block and the last one, over 3 x 8 rows; none through the kernel
-    assert trace.counters == {"encoder.ln_rows": (2 * cfg.depth + 1) * 24}
+    # (the attention counts its own rows, 3 x 2 heads x 8 a block)
+    assert trace.counters == {"encoder.ln_rows": (2 * cfg.depth + 1) * 24,
+                              "encoder.attn_rows": cfg.depth * 48}
     trace.reset_counters()
 
 
