@@ -852,9 +852,9 @@ def check_layer_norm(x, eps, label, reps=20, seed=0):
       not.
     """
     import torch
-    from tdr_torch.models.encoder import (layer_norm_backward_plain,
-                                          layer_norm_plain)
     from tdr_torch.ops import layer_norm as lnk
+    from tdr_torch.ops.layer_norm import (layer_norm_backward_plain,
+                                          layer_norm_plain)
 
     rows, D = x.shape
     gen = torch.Generator(device=x.device).manual_seed(seed)
@@ -1034,8 +1034,7 @@ def _attention_reference(q, k, v, valid, dout):
     """The same function in IEEE f32 with no rounding between its steps
     (the divisor still bf16(sqrt(Dh))): the output and (dq, dk, dv)."""
     import torch
-    from tdr_torch.models.encoder import attention_mask
-    from tdr_torch.ops.attention import scale_of
+    from tdr_torch.ops.attention import attention_mask, scale_of
     from tdr_torch.ops.precision import ieee_f32
 
     B, H, L, Dh = q.shape
@@ -1067,9 +1066,9 @@ def check_attention(B, H, L, Dh, label, reps=20, seed=0):
     """
     import torch
     from torch.nn import functional as F
-    from tdr_torch.models.encoder import (attend_backward_plain, attend_plain,
-                                          attention_mask)
     from tdr_torch.ops import attention as ak
+    from tdr_torch.ops.attention import (attend_backward_plain, attend_plain,
+                                         attention_mask)
 
     q, k, v, dout, valid = _attention_operands(B, H, L, Dh, seed)
     out, stats = ak.attention_fwd(q, k, v, valid)

@@ -3,7 +3,7 @@
 //
 // Replaces no TPU kernel: tdr's encoder (tdr/models/encoder.py) leaves its
 // attention to XLA.  PyTorch ran the port's plain version
-// (tdr_torch/models/encoder.py, attend_plain) as a kernel per pass over the
+// (tdr_torch/ops/attention.py, attend_plain) as a kernel per pass over the
 // (B, H, L, L) scores: the product, a masked fill against a broadcast
 // (B, 1, L, L) mask, the softmax, the product with v, a transposing copy;
 // autograd adds the products' dP, the softmax backward and a second masked

@@ -3,7 +3,7 @@
 //
 // Replaces no TPU kernel: tdr's encoder (tdr/models/encoder.py) leaves its
 // flax nn.LayerNorm(dtype=float32) to XLA, which fuses it.  PyTorch ran the
-// port's plain version (tdr_torch/models/encoder.py, layer_norm_plain) as a
+// port's plain version (tdr_torch/ops/layer_norm.py, layer_norm_plain) as a
 // chain of generic elementwise kernels, each a pass over the rows in f32,
 // with about twice as many passes back through autograd and their f32
 // intermediates kept alive.  Here one launch reads each row once and writes

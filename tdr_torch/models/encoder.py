@@ -7,17 +7,13 @@ same rounding points:
 * parameters are kept in f32 and cast to the compute dtype (bf16 by default)
   at each use, as flax's ``dtype=`` does;
 * LayerNorm runs in f32 with epsilon 1e-6 and flax's fast variance
-  (``E[x²] - E[x]²``, clamped at 0), and returns f32; on the card it is one
-  hand-written kernel each way (``ops.layer_norm``), on the CPU the plain
-  ops;
+  (``E[x²] - E[x]²``, clamped at 0), and returns f32
+  (``ops.layer_norm.layer_norm``);
 * a dense layer rounds its product to the compute dtype, then adds the bias
   in that dtype;
 * attention divides the *query* by ``sqrt(head_dim)`` in the compute dtype,
-  masks with ``finfo(dtype).min`` (not ``-inf``: a padded query row, whose
-  keys are all masked, then gets a uniform softmax instead of NaN, and NaN
-  would survive the mean pooling), and takes the softmax in the compute
-  dtype; on the card in bf16 it is one hand-written kernel each way
-  (``ops.attention``), on the CPU and in f32 the plain ops;
+  masks with ``finfo(dtype).min``, padded query rows too, and takes the
+  softmax in the compute dtype (``ops.attention.attend``);
 * GELU is the tanh approximation (flax's ``nn.gelu`` default);
 * mean pooling and the L2 normalization run in f32;
 * an f32 encoder (``cfg.dtype="float32"``) multiplies in full IEEE f32,
@@ -30,22 +26,18 @@ two forwards can be compared on the same weights.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tdr_torch.ops import attention as attn_kernels
-from tdr_torch.ops import layer_norm as ln_kernels
+from tdr_torch.ops.attention import attend
+from tdr_torch.ops.layer_norm import EPS, layer_norm
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.utils.config import DenseConfig
 from tdr_torch.utils.device import DeviceLike, resolve_device
-from tdr_torch.utils.trace import count
-
-_LN_EPS = 1e-6
 
 Params = Mapping[str, torch.Tensor]
 
@@ -78,170 +70,10 @@ def project_heads(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return linear(y, weight, bias, dtype).view(B, L, heads, -1).transpose(1, 2)
 
 
-def _query_scale(head_dim: int, dtype: torch.dtype) -> torch.Tensor:
-    return torch.tensor(math.sqrt(head_dim)).to(dtype)
-
-
-def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Masked softmax attention of (B, H, L, Dh) heads → (B, L, H * Dh),
-    before the output projection, in plain torch ops: the CPU and f32
-    path, and what the CUDA kernels compute.  ``valid`` (B, L) bool."""
-    B, H, L, Dh = q.shape
-    q = q / _query_scale(Dh, dtype)
-    w = q @ k.transpose(-1, -2)                             # (B, H, L, L)
-    w = w.masked_fill(~attention_mask(valid), torch.finfo(dtype).min)
-    w = torch.softmax(w, dim=-1)
-    return (w @ v).transpose(1, 2).reshape(B, L, H * Dh)
-
-
-def attend_backward_plain(dout: torch.Tensor, q: torch.Tensor,
-                          k: torch.Tensor, v: torch.Tensor,
-                          valid: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
-    """The gradients of ``attend_plain`` in closed form, (dq, dk, dv) as
-    (B, H, L, Dh) in q's dtype from dO (B, L, H * Dh), with the backward
-    kernel's arithmetic: P recomputed as the forward makes it; ``dP = dO
-    vᵀ``, ``dv = Pᵀ dO``; ``dS = P (dP - Σⱼ P dP)`` in f32 from the
-    rounded P and dP (torch's softmax backward), 0 wherever the mask is
-    false (the masked fill's backward: a padded query row's every entry);
-    ``dq = (dS k) / scale``, ``dk = dSᵀ q_s``, each product rounded to q's
-    dtype."""
-    B, H, L, Dh = q.shape
-    dtype = q.dtype
-    f = _compute_dtype(q)
-    scale = _query_scale(Dh, dtype)
-    mask = attention_mask(valid)
-    qs = q / scale
-    s = (qs @ k.transpose(-1, -2)).masked_fill(~mask, torch.finfo(dtype).min)
-    p = torch.softmax(s, dim=-1)
-    do = dout.view(B, L, H, Dh).transpose(1, 2)
-    dp = do @ v.transpose(-1, -2)
-    pf, dpf = p.to(f), dp.to(f)
-    ds = (pf * (dpf - (pf * dpf).sum(dim=-1, keepdim=True))).to(dtype)
-    ds = ds.masked_fill(~mask, 0)
-    return ((ds @ k) / scale, ds.transpose(-1, -2) @ qs,
-            p.transpose(-1, -2) @ do)
-
-
-class _AttentionKernel(torch.autograd.Function):
-    """``attend_plain`` on bf16 heads as the two CUDA kernels of
-    ``tdr_torch.ops.attention``: the forward saves q, k, v and each row's
-    softmax max and sum, not P; the backward recomputes P from them."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, valid):
-        out, stats = attn_kernels.attention_fwd(q, k, v, valid)
-        ctx.save_for_backward(q, k, v, valid, stats)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, valid, stats = ctx.saved_tensors
-        dq, dk, dv = attn_kernels.attention_bwd(dout.contiguous(), q, k, v,
-                                                valid, stats)
-        return dq, dk, dv, None
-
-
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Masked softmax attention of (B, H, L, Dh) heads in ``dtype`` →
-    (B, L, H * Dh), before the output projection; ``valid`` (B, L) bool
-    marks the real positions.  On CUDA in bf16 the kernels (Dh 16, 32 or
-    64, L up to 512, or it raises); on the CPU, and in f32 (the IEEE
-    reference precision, ``ops.precision.ieee_f32``) on any device,
-    ``attend_plain``.  While a profiler records, counts the query rows
-    (B x H x L) under ``encoder.attn_rows``, and those the kernels took
-    under ``encoder.attn_rows_kernel``."""
-    rows = math.prod(q.shape[:-1])
-    count("encoder.attn_rows", rows)
-    if not q.is_cuda or dtype != torch.bfloat16:
-        return attend_plain(q, k, v, valid, dtype)
-    out = _AttentionKernel.apply(q, k, v, valid)
-    count("encoder.attn_rows_kernel", rows)
-    return out
-
-
 def mlp_hidden(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """The MLP's up projection and tanh GELU."""
     return F.gelu(linear(x, weight, bias, dtype), approximate="tanh")
-
-
-def _compute_dtype(x: torch.Tensor) -> torch.dtype:
-    """f32 for bf16 and f32 inputs (f64 stays f64, for the tests)."""
-    return torch.promote_types(x.dtype, torch.float32)
-
-
-def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, eps: float = _LN_EPS) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=float32)`` in plain torch ops: the CPU
-    path, and what the CUDA kernels compute."""
-    x = x.to(_compute_dtype(x))
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-    mul = torch.rsqrt(var + eps) * weight
-    return (x - mu) * mul + bias
-
-
-def layer_norm_backward_plain(dy: torch.Tensor, x: torch.Tensor,
-                              weight: torch.Tensor, eps: float = _LN_EPS
-                              ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-    """The gradients of ``layer_norm_plain`` in closed form, (dx in x's
-    dtype, dweight, dbias), with the backward kernel's arithmetic: with
-    ``xh = (x - mean) * rstd`` and ``g = dy * weight``, ``dx = ((g -
-    mean(g)) - xh * mean(g * xh)) * rstd``, the ``xh`` term dropped where
-    the variance's clamp at 0 is active (no gradient flows through the
-    variance there, as ``clamp_min``'s backward); ``dweight`` sums ``dy *
-    xh`` over the rows, ``dbias`` sums ``dy``."""
-    xf = x.to(_compute_dtype(x))
-    dy = dy.to(xf.dtype)
-    mu = xf.mean(dim=-1, keepdim=True)
-    raw = (xf * xf).mean(dim=-1, keepdim=True) - mu * mu
-    rstd = torch.rsqrt(raw.clamp_min(0.0) + eps)
-    xh = (xf - mu) * rstd
-    g = dy * weight
-    c2 = torch.where(raw < 0, 0.0, (g * xh).mean(dim=-1, keepdim=True))
-    dx = ((g - g.mean(dim=-1, keepdim=True)) - xh * c2) * rstd
-    rows = tuple(range(dy.dim() - 1))
-    return dx.to(x.dtype), (dy * xh).sum(dim=rows), dy.sum(dim=rows)
-
-
-class _LayerNormKernel(torch.autograd.Function):
-    """``layer_norm_plain`` as the two CUDA kernels of
-    ``tdr_torch.ops.layer_norm``: the backward recomputes x-hat from x and
-    each row's saved mean and rstd."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        y, stats = ln_kernels.layer_norm_fwd(x, weight, bias, eps)
-        ctx.save_for_backward(x, weight, stats)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, weight, stats = ctx.saved_tensors
-        dx, dw, db = ln_kernels.layer_norm_bwd(dy.contiguous(), x, weight,
-                                               stats)
-        return dx, dw, db, None
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = _LN_EPS) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=float32)`` over the last axis, f32 out: the
-    CUDA kernels on a CUDA tensor (bf16 or f32, width a multiple of 4 up to
-    8,192, or it raises), ``layer_norm_plain`` on a CPU tensor.  While a
-    profiler records, counts the rows under ``encoder.ln_rows``, and those
-    the kernels took under ``encoder.ln_rows_kernel``."""
-    rows = math.prod(x.shape[:-1])
-    count("encoder.ln_rows", rows)
-    if not x.is_cuda:
-        return layer_norm_plain(x, weight, bias, eps)
-    y = _LayerNormKernel.apply(x, weight, bias, eps)
-    count("encoder.ln_rows_kernel", rows)
-    return y
 
 
 class LayerNorm(nn.Module):
@@ -249,7 +81,7 @@ class LayerNorm(nn.Module):
     variance, epsilon ``eps`` (flax's 1e-6 by default; BERT uses 1e-12),
     f32 output."""
 
-    def __init__(self, dim: int, eps: float = _LN_EPS):
+    def __init__(self, dim: int, eps: float = EPS):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
@@ -298,13 +130,6 @@ def embed(ids: torch.Tensor, table: torch.Tensor, pos: torch.Tensor,
     L = ids.shape[1]
     return (F.embedding(ids.long(), table).to(dtype)
             + pos[None, :L].to(dtype))
-
-
-def attention_mask(mask: torch.Tensor) -> torch.Tensor:
-    """flax ``make_attention_mask(mask, mask)``: padded query rows masked
-    too; (B, 1, L, L) bool."""
-    valid = mask > 0
-    return valid[:, None, :, None] & valid[:, None, None, :]
 
 
 def pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

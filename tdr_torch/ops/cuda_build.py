@@ -10,16 +10,15 @@ the link needs no ``-lcuda``.  Nothing here runs when the module is
 imported, so the CPU tests import every module without ``nvcc``.
 
 The library's kernels go to the CUDA runtime's current device, so each
-wrapper launches inside ``torch.cuda.device`` of its tensors' device (a
-mesh shard or a pipeline stage on another card).
+wrapper launches through ``launch``, which enters ``torch.cuda.device`` of
+the device it is given (a mesh shard or a pipeline stage on another card).
 
-``launches`` counts, per kernel, the launches the wrappers made; a wrapper
-adds one where it launches its kernel and nowhere else.  The f32 bodies of
-K2 and K3 count under their own names (``fused_head_f32``,
-``fused_flat_f32``); the LayerNorm's two wrappers as ``layer_norm_fwd`` and
-``layer_norm_bwd``, one a call (the backward's call launches its kernel and
-the reduction of its partial sums); the attention's as ``attention_fwd`` and
-``attention_bwd``, one a call.
+``launches`` counts, per kernel, the launches the wrappers made through
+``launch``.  The f32 bodies of K2 and K3 count under their own names
+(``fused_head_f32``, ``fused_flat_f32``); the LayerNorm's two wrappers as
+``layer_norm_fwd`` and ``layer_norm_bwd``, one a call (the backward's call
+launches its kernel and the reduction of its partial sums); the attention's
+as ``attention_fwd`` and ``attention_bwd``, one a call.
 """
 
 from __future__ import annotations
@@ -163,7 +162,15 @@ def check(err: int, name: str) -> None:
         raise KernelError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
-def current_stream(device) -> int:
+def launch(name: str, symbol: str, device, *args) -> None:
+    """Calls the library's ``symbol`` with ``args`` and ``device``'s current
+    stream, inside ``torch.cuda.device(device)``; raises ``KernelError``
+    under ``name`` if it returns an error, and counts one launch of
+    ``name``."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib(), symbol)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)
+    launches[name] += 1

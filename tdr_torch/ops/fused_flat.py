@@ -138,29 +138,17 @@ def fused_flat_blockmax(q: torch.Tensor, emb: torch.Tensor,
             raise ValueError(f"fused_flat: {name} must be contiguous and "
                              f"16-byte aligned")
     out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=emb.device)
-    lib = cuda_build.lib()
-    stream = cuda_build.current_stream(emb.device)
-    name = "fused_flat"
-    if not is_int8 and emb.dtype != torch.bfloat16:
+    name, symbol, lhs, scales = "fused_flat", "tdr_fused_flat_bf16", q, ()
+    if is_int8:
+        symbol = "tdr_fused_flat_int8"
+        scales = (dscale.data_ptr(), qscale.data_ptr())
+    elif emb.dtype != torch.bfloat16:
         # the B operand of the 3xTF32 products: big rows, then small rows
-        qs = torch.cat(tf32_split(q))
-        name = "fused_flat_f32"
-    with torch.cuda.device(emb.device):   # launches on the current device
-        if is_int8:
-            err = lib.tdr_fused_flat_int8(
-                q.data_ptr(), emb.data_ptr(), bias.data_ptr(),
-                dscale.data_ptr(), qscale.data_ptr(), out.data_ptr(), Qp, D,
-                N, alpha, stream)
-        elif emb.dtype == torch.bfloat16:
-            err = lib.tdr_fused_flat_bf16(q.data_ptr(), emb.data_ptr(),
-                                          bias.data_ptr(), out.data_ptr(), Qp,
-                                          D, N, alpha, stream)
-        else:
-            err = lib.tdr_fused_flat_f32(qs.data_ptr(), emb.data_ptr(),
-                                         bias.data_ptr(), out.data_ptr(), Qp,
-                                         D, N, alpha, stream)
-    cuda_build.check(err, name)
-    cuda_build.launches[name] += 1
+        name, symbol = "fused_flat_f32", "tdr_fused_flat_f32"
+        lhs = torch.cat(tf32_split(q))
+    cuda_build.launch(name, symbol, emb.device, lhs.data_ptr(), emb.data_ptr(),
+                      bias.data_ptr(), *scales, out.data_ptr(), Qp, D, N,
+                      alpha)
     return out
 
 

@@ -116,26 +116,14 @@ def fused_head_blockmax(Wc: torch.Tensor, head: torch.Tensor,
             raise ValueError(f"fused_head: {name} must be contiguous and "
                              f"16-byte aligned")
     out = torch.empty((Qp, N // SUB), dtype=torch.float32, device=head.device)
-    lib = cuda_build.lib()
-    stream = cuda_build.current_stream(head.device)
-    name = "fused_head"
+    name, symbol, lhs = "fused_head", "tdr_fused_head_bf16", Wc
     if head.dtype != torch.bfloat16:
         # the B operand of the 3xTF32 products: big rows, then small rows
-        Ws = torch.cat(tf32_split(Wc))
-        name = "fused_head_f32"
-    with torch.cuda.device(head.device):  # launches on the current device
-        if head.dtype == torch.bfloat16:
-            err = lib.tdr_fused_head_bf16(
-                Wc.data_ptr(), head.data_ptr(), rows.data_ptr(),
-                n_active.data_ptr(), bias.data_ptr(), out.data_ptr(), Qp, D,
-                N, stream)
-        else:
-            err = lib.tdr_fused_head_f32(
-                Ws.data_ptr(), head.data_ptr(), rows.data_ptr(),
-                n_active.data_ptr(), bias.data_ptr(), out.data_ptr(), Qp, D,
-                N, stream)
-    cuda_build.check(err, name)
-    cuda_build.launches[name] += 1
+        name, symbol = "fused_head_f32", "tdr_fused_head_f32"
+        lhs = torch.cat(tf32_split(Wc))
+    cuda_build.launch(name, symbol, head.device, lhs.data_ptr(),
+                      head.data_ptr(), rows.data_ptr(), n_active.data_ptr(),
+                      bias.data_ptr(), out.data_ptr(), Qp, D, N)
     return out
 
 

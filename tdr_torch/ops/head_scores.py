@@ -87,15 +87,11 @@ def head_scores_rows(rows: torch.Tensor, slots: torch.Tensor,
     out = torch.empty((Q, N), dtype=torch.float32, device=rows.device)
     if Q == 0:
         return out
-    lib = cuda_build.lib()
-    fn = (lib.tdr_head_scores_bf16 if rows.dtype == torch.bfloat16
-          else lib.tdr_head_scores_f32)
-    with torch.cuda.device(rows.device):  # launches on the current device
-        err = fn(rows.data_ptr(), slots.data_ptr(), qw.data_ptr(),
-                 n_active.data_ptr(), out.data_ptr(), Q, T, N,
-                 cuda_build.current_stream(rows.device))
-    cuda_build.check(err, "head_scores")
-    cuda_build.launches["head_scores"] += 1
+    symbol = ("tdr_head_scores_bf16" if rows.dtype == torch.bfloat16
+              else "tdr_head_scores_f32")
+    cuda_build.launch("head_scores", symbol, rows.device, rows.data_ptr(),
+                      slots.data_ptr(), qw.data_ptr(), n_active.data_ptr(),
+                      out.data_ptr(), Q, T, N)
     return out
 
 

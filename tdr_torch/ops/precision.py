@@ -36,6 +36,12 @@ import torch
 _LOCK = threading.RLock()          # one pin at a time; re-entered by nesting
 
 
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of f32 arithmetic on ``x``: f32 for bf16 and f32 inputs
+    (f64 stays f64, for the tests)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _new_api_knobs() -> Tuple[object, ...]:
     """The newer API's matmul knobs that ``set_float32_matmul_precision``

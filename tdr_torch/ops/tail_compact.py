@@ -149,16 +149,12 @@ def tail_compact(index: SparseIndex, qids: torch.Tensor, qw: torch.Tensor,
     docs = torch.empty((Q, width), dtype=torch.int32, device=dev)
     vals = torch.empty((Q, width), dtype=torch.float32, device=dev)
     overflow = torch.empty(Q, dtype=torch.bool, device=dev)
-    lib = cuda_build.lib()
-    with torch.cuda.device(dev):      # the library launches on the current device
-        err = lib.tdr_tail_compact_fused(
-            qids.data_ptr(), qw.data_ptr(), index.head_slot.data_ptr(),
-            index.stats.df.data_ptr(), index.indptr.data_ptr(),
-            index.postings_doc.data_ptr(), index.postings_w.data_ptr(),
-            docs.data_ptr(), vals.data_ptr(), overflow.data_ptr(), Q, T, MT,
-            width, budget, index.vocab_size, max(int(index.tail_pmax), 1),
-            index.postings_doc.numel(), index.n_docs_pad,
-            cuda_build.current_stream(dev))
-    cuda_build.check(err, "tail_compact")
-    cuda_build.launches["tail_compact"] += 1
+    cuda_build.launch(
+        "tail_compact", "tdr_tail_compact_fused", dev,
+        qids.data_ptr(), qw.data_ptr(), index.head_slot.data_ptr(),
+        index.stats.df.data_ptr(), index.indptr.data_ptr(),
+        index.postings_doc.data_ptr(), index.postings_w.data_ptr(),
+        docs.data_ptr(), vals.data_ptr(), overflow.data_ptr(), Q, T, MT,
+        width, budget, index.vocab_size, max(int(index.tail_pmax), 1),
+        index.postings_doc.numel(), index.n_docs_pad)
     return docs, vals, overflow

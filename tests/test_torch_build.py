@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr.ckpt.registry import _to_numpy_savable  # noqa: E402
 from tdr.index import build as jbuild  # noqa: E402

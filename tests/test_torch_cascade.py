@@ -11,7 +11,7 @@ for near-ties in their candidate sets.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax.numpy as jnp  # noqa: E402
 

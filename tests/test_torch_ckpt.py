@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr import ckpt as jckpt  # noqa: E402
 from tdr.index import quantize_head as j_quantize  # noqa: E402

@@ -30,7 +30,7 @@ import sys
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr import cli as jcli  # noqa: E402
 from tdr_torch import cli as tcli  # noqa: E402

@@ -18,7 +18,7 @@ import sys
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 transformers = pytest.importorskip("transformers")
 
 import flax  # noqa: E402

@@ -1,4 +1,4 @@
-"""The encoder's attention (``tdr_torch.models.encoder.attend``) on CPU.
+"""The encoder's attention (``tdr_torch.ops.attention.attend``) on CPU.
 
 On the card, bf16 heads take two hand-written kernels behind an autograd
 ``Function`` (``tdr_torch/csrc/attention.cu``), which ``chip_smoke.py``
@@ -18,12 +18,12 @@ import os
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from tdr_torch.models import encoder  # noqa: E402
-from tdr_torch.ops import attention as attn_kernels  # noqa: E402
+from tdr_torch.ops import attention as attn_op  # noqa: E402
 from tdr_torch.ops import cuda_build  # noqa: E402
 from tdr_torch.utils import trace  # noqa: E402
 
@@ -73,9 +73,9 @@ def _grads(fn, q, k, v, dout):
                                       (2, 2, 136, 64)])
 def test_closed_form_backward_matches_autograd_in_f64(B, H, L, Dh):
     q, k, v, dout, valid = _heads(B, H, L, Dh, torch.float64, seed=L)
-    want = _grads(lambda *a: encoder.attend_plain(*a, valid, torch.float64),
+    want = _grads(lambda *a: attn_op.attend_plain(*a, valid, torch.float64),
                   q, k, v, dout)
-    got = encoder.attend_backward_plain(dout, q, k, v, valid)
+    got = attn_op.attend_backward_plain(dout, q, k, v, valid)
     for name, a, e in zip(("dq", "dk", "dv"), got, want[1:]):
         assert a.dtype == torch.float64 and a.shape == e.shape
         torch.testing.assert_close(a, e, rtol=1e-10, atol=1e-12 * float(
@@ -87,8 +87,8 @@ def test_padded_rows_and_sequences(dtype):
     B, H, L, Dh = 3, 2, 12, 16
     q, k, v, dout, valid = _heads(B, H, L, Dh, dtype, seed=3,
                                   lengths=[12, 5, 0])
-    out = encoder.attend_plain(q, k, v, valid, dtype)
-    dq, dk, dv = encoder.attend_backward_plain(dout, q, k, v, valid)
+    out = attn_op.attend_plain(q, k, v, valid, dtype)
+    dq, dk, dv = attn_op.attend_backward_plain(dout, q, k, v, valid)
     for t in (out, dq, dk, dv):
         assert bool(torch.isfinite(t).all())
     # a padded query row attends to every position alike: the mean of v
@@ -109,9 +109,9 @@ def test_padded_rows_and_sequences(dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cpu_tensors_take_the_plain_ops_bit_for_bit(dtype):
     q, k, v, dout, valid = _heads(3, 4, 10, 16, dtype, seed=1)
-    mask = encoder.attention_mask(valid.int())
+    mask = attn_op.attention_mask(valid.int())
     before = dict(cuda_build.launches)
-    got = _grads(lambda *a: encoder.attend(*a, valid, dtype), q, k, v, dout)
+    got = _grads(lambda *a: attn_op.attend(*a, valid, dtype), q, k, v, dout)
     want = _grads(lambda *a: _today(*a, mask, dtype), q, k, v, dout)
     assert cuda_build.launches == before
     for a, e in zip(got, want):
@@ -122,9 +122,9 @@ def _stats_plain(q, k, valid):
     """Each row's softmax (max, sum) in f32, as the forward kernel saves
     them."""
     Dh = q.shape[-1]
-    qs = q / encoder._query_scale(Dh, q.dtype)
+    qs = q / attn_op._query_scale(Dh, q.dtype)
     s = (qs @ k.transpose(-1, -2)).masked_fill(
-        ~encoder.attention_mask(valid), torch.finfo(q.dtype).min).float()
+        ~attn_op.attention_mask(valid), torch.finfo(q.dtype).min).float()
     m = s.amax(dim=-1, keepdim=True)
     return torch.stack([m[..., 0], torch.exp(s - m).sum(dim=-1)], dim=-1)
 
@@ -134,20 +134,20 @@ def _stand_ins(monkeypatch):
     calls = []
 
     def fwd(q, k, v, valid):
-        B, H, L, Dh = attn_kernels.check_args(q, k, v, valid)
+        B, H, L, Dh = attn_op.check_args(q, k, v, valid)
         calls.append("fwd")
-        return (encoder.attend_plain(q, k, v, valid, torch.bfloat16),
+        return (attn_op.attend_plain(q, k, v, valid, torch.bfloat16),
                 _stats_plain(q, k, valid))
 
     def bwd(dout, q, k, v, valid, stats):
-        B, H, L, Dh = attn_kernels.check_args(q, k, v, valid)
+        B, H, L, Dh = attn_op.check_args(q, k, v, valid)
         assert dout.is_contiguous() and dout.shape == (B, L, H * Dh)
         torch.testing.assert_close(stats, _stats_plain(q, k, valid))
         calls.append("bwd")
-        return encoder.attend_backward_plain(dout, q, k, v, valid)
+        return attn_op.attend_backward_plain(dout, q, k, v, valid)
 
-    monkeypatch.setattr(attn_kernels, "attention_fwd", fwd)
-    monkeypatch.setattr(attn_kernels, "attention_bwd", bwd)
+    monkeypatch.setattr(attn_op, "attention_fwd", fwd)
+    monkeypatch.setattr(attn_op, "attention_bwd", bwd)
     return calls
 
 
@@ -158,23 +158,23 @@ def test_the_function_carries_the_kernels_results(monkeypatch):
     g = torch.Generator().manual_seed(5)
     dout = torch.randn(1, 24, 96, generator=g).to(torch.bfloat16)
     dout = dout.expand(4, 24, 96)
-    got = _grads(lambda *a: encoder._AttentionKernel.apply(*a, valid),
+    got = _grads(lambda *a: attn_op._AttentionKernel.apply(*a, valid),
                  q, k, v, dout)
     assert calls == ["fwd", "bwd"]
-    assert torch.equal(got[0], encoder.attend_plain(q, k, v, valid,
+    assert torch.equal(got[0], attn_op.attend_plain(q, k, v, valid,
                                                     torch.bfloat16))
-    want = encoder.attend_backward_plain(dout.contiguous(), q, k, v, valid)
+    want = attn_op.attend_backward_plain(dout.contiguous(), q, k, v, valid)
     for a, e in zip(got[1:], want):
         assert a.dtype == torch.bfloat16 and torch.equal(a, e)
     # and they are the gradients autograd takes through the plain ops, up to
     # sums in another order and one bf16 rounding either way
-    auto = _grads(lambda *a: encoder.attend_plain(*a, valid, torch.bfloat16),
+    auto = _grads(lambda *a: attn_op.attend_plain(*a, valid, torch.bfloat16),
                   q, k, v, dout)
     for a, e in zip(got[1:], auto[1:]):
         torch.testing.assert_close(a.float(), e.float(), rtol=2 ** -6,
                                    atol=2 ** -6 * float(e.abs().max()))
     with torch.inference_mode():
-        assert torch.equal(encoder._AttentionKernel.apply(q, k, v, valid),
+        assert torch.equal(attn_op._AttentionKernel.apply(q, k, v, valid),
                            got[0])
     assert calls == ["fwd", "bwd", "fwd"]
 
@@ -224,7 +224,7 @@ def _ok(B=2, H=3, L=16, Dh=32):
     "valid_int", "valid_shape", "valid_strided"])
 def test_the_kernel_argument_check_raises(case):
     q, k, v, valid = _ok()
-    assert attn_kernels.check_args(q, k, v, valid) == (2, 3, 16, 32)
+    assert attn_op.check_args(q, k, v, valid) == (2, 3, 16, 32)
     if case == "f32":
         q = q.float()
     elif case == "half":
@@ -241,7 +241,7 @@ def test_the_kernel_argument_check_raises(case):
         q, k, v, valid = _ok(L=0)
     elif case == "l_513":
         q, k, v, valid = _ok(L=512)
-        assert attn_kernels.check_args(q, k, v, valid) == (2, 3, 512, 32)
+        assert attn_op.check_args(q, k, v, valid) == (2, 3, 512, 32)
         q, k, v, valid = _ok(L=513)
     elif case == "strides_differ":
         v = v.contiguous()
@@ -254,7 +254,7 @@ def test_the_kernel_argument_check_raises(case):
     elif case == "misaligned":
         x = torch.zeros(2 * 16 * 96 + 8, dtype=torch.bfloat16)
         q = k = v = x[8:].view(2, 16, 3, 32).transpose(1, 2)
-        assert attn_kernels.check_args(q, k, v, valid) == (2, 3, 16, 32)
+        assert attn_op.check_args(q, k, v, valid) == (2, 3, 16, 32)
         q = k = v = x[1:2 * 16 * 96 + 1].view(2, 16, 3, 32).transpose(1, 2)
     elif case == "valid_int":
         valid = valid.int()
@@ -263,21 +263,20 @@ def test_the_kernel_argument_check_raises(case):
     elif case == "valid_strided":
         valid = torch.ones(16, 2, dtype=torch.bool).t()
     with pytest.raises(ValueError):
-        attn_kernels.check_args(q, k, v, valid)
+        attn_op.check_args(q, k, v, valid)
 
 
 def test_the_kernel_wrappers_take_only_cuda_tensors():
     q, k, v, valid = _ok()
     with pytest.raises(ValueError):
-        attn_kernels.attention_fwd(q, k, v, valid)
+        attn_op.attention_fwd(q, k, v, valid)
     with pytest.raises(ValueError):
-        attn_kernels.attention_bwd(torch.zeros(2, 16, 96,
-                                               dtype=torch.bfloat16),
-                                   q, k, v, valid, torch.zeros(2, 3, 16, 2))
+        attn_op.attention_bwd(torch.zeros(2, 16, 96, dtype=torch.bfloat16),
+                              q, k, v, valid, torch.zeros(2, 3, 16, 2))
 
 
 def test_the_scale_is_the_plain_ops_divisor():
-    for dh in attn_kernels.HEAD_DIMS:
-        assert attn_kernels.scale_of(dh) == float(
-            encoder._query_scale(dh, torch.bfloat16))
-    assert attn_kernels.scale_of(32) == 5.65625      # sqrt(32) in bf16
+    for dh in attn_op.HEAD_DIMS:
+        assert attn_op.scale_of(dh) == float(
+            attn_op._query_scale(dh, torch.bfloat16))
+    assert attn_op.scale_of(32) == 5.65625      # sqrt(32) in bf16

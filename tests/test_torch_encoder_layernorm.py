@@ -1,4 +1,4 @@
-"""The encoder's LayerNorm (``tdr_torch.models.encoder.layer_norm``) on CPU.
+"""The encoder's LayerNorm (``tdr_torch.ops.layer_norm.layer_norm``) on CPU.
 
 On the card it is two hand-written kernels behind an autograd ``Function``
 (``tdr_torch/csrc/layer_norm.cu``), which ``chip_smoke.py`` holds against
@@ -15,13 +15,13 @@ import os
 
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from tdr_torch.models import encoder  # noqa: E402
 from tdr_torch.ops import cuda_build  # noqa: E402
-from tdr_torch.ops import layer_norm as ln_kernels  # noqa: E402
+from tdr_torch.ops import layer_norm as ln_op  # noqa: E402
 from tdr_torch.utils import trace  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,9 +64,9 @@ def test_closed_form_backward_matches_autograd_in_f64(D, values):
     w, b = _params(D, torch.float64)
     dy = torch.randn(ROWS, D, generator=g, dtype=torch.float64)
     xa, wa, ba = (t.clone().requires_grad_() for t in (x, w, b))
-    want = torch.autograd.grad(encoder.layer_norm_plain(xa, wa, ba),
+    want = torch.autograd.grad(ln_op.layer_norm_plain(xa, wa, ba),
                                (xa, wa, ba), dy)
-    got = encoder.layer_norm_backward_plain(dy, x, w)
+    got = ln_op.layer_norm_backward_plain(dy, x, w)
     for name, a, e in zip(("dx", "dweight", "dbias"), got, want):
         assert a.dtype == torch.float64
         torch.testing.assert_close(a, e, rtol=1e-12, atol=1e-12 * float(
@@ -101,7 +101,7 @@ def test_cpu_tensors_take_the_plain_ops_bit_for_bit(dtype, eps):
     w, b = _params(384)
     dy = torch.randn(2, 5, 384, generator=g)
     before = dict(cuda_build.launches)
-    got = _grads(lambda *a: encoder.layer_norm(*a, eps=eps), x, w, b, dy)
+    got = _grads(lambda *a: ln_op.layer_norm(*a, eps=eps), x, w, b, dy)
     want = _grads(lambda *a: _today(*a, eps), x, w, b, dy)
     assert cuda_build.launches == before
     for a, e in zip(got, want):
@@ -126,17 +126,17 @@ def _stand_ins(monkeypatch, eps):
         rstd = torch.rsqrt(raw.clamp_min(0.0) + e)
         mean = xf.mean(dim=-1).reshape(-1)
         calls.append("fwd")
-        return (encoder.layer_norm_plain(x, weight, bias, e),
+        return (ln_op.layer_norm_plain(x, weight, bias, e),
                 torch.stack([mean, torch.where(raw < 0, -rstd, rstd)], 1))
 
     def bwd(dy, x, weight, stats):
         rows = x.numel() // x.shape[-1]
         assert dy.is_contiguous() and stats.shape == (rows, 2)
         calls.append("bwd")
-        return encoder.layer_norm_backward_plain(dy, x, weight, eps)
+        return ln_op.layer_norm_backward_plain(dy, x, weight, eps)
 
-    monkeypatch.setattr(ln_kernels, "layer_norm_fwd", fwd)
-    monkeypatch.setattr(ln_kernels, "layer_norm_bwd", bwd)
+    monkeypatch.setattr(ln_op, "layer_norm_fwd", fwd)
+    monkeypatch.setattr(ln_op, "layer_norm_bwd", bwd)
     return calls
 
 
@@ -149,11 +149,11 @@ def test_the_function_carries_the_kernels_results(dtype, monkeypatch):
     w, b = _params(384)
     # a broadcast gradient: the Function hands the kernel a contiguous one
     dy = torch.randn(1, 4, 384, generator=g).expand(3, 4, 384)
-    got = _grads(lambda *a: encoder._LayerNormKernel.apply(*a, eps),
+    got = _grads(lambda *a: ln_op._LayerNormKernel.apply(*a, eps),
                  x, w, b, dy)
     assert calls == ["fwd", "bwd"]
     assert torch.equal(got[0], _today(x, w, b, eps))
-    want = encoder.layer_norm_backward_plain(dy.contiguous(), x, w, eps)
+    want = ln_op.layer_norm_backward_plain(dy.contiguous(), x, w, eps)
     assert got[1].dtype == dtype
     for a, e in zip(got[1:], want):
         assert torch.equal(a, e)
@@ -165,7 +165,7 @@ def test_the_function_carries_the_kernels_results(dtype, monkeypatch):
         torch.testing.assert_close(a.float(), e.float(), rtol=tol,
                                    atol=tol * float(e.abs().max()))
     with torch.inference_mode():
-        assert torch.equal(encoder._LayerNormKernel.apply(x, w, b, eps),
+        assert torch.equal(ln_op._LayerNormKernel.apply(x, w, b, eps),
                            got[0])
 
 
@@ -212,10 +212,10 @@ def _ok():
     "weight_f64", "weight_shape"])
 def test_the_kernel_argument_check_raises(case):
     x, w, b = _ok()
-    assert ln_kernels.check_args(x, w, b) == 8
+    assert ln_op.check_args(x, w, b) == 8
     if case == "wide":
         x, w, b = torch.zeros(2, 8192), torch.ones(8192), torch.zeros(8192)
-        assert ln_kernels.check_args(x, w, b) == 8192
+        assert ln_op.check_args(x, w, b) == 8192
         x, w, b = torch.zeros(2, 8196), torch.ones(8196), torch.zeros(8196)
     elif case == "narrow":
         x, w, b = torch.zeros(2, 0), torch.ones(0), torch.zeros(0)
@@ -232,12 +232,12 @@ def test_the_kernel_argument_check_raises(case):
     elif case == "weight_shape":
         b = torch.zeros(1, 8)
     with pytest.raises(ValueError):
-        ln_kernels.check_args(x, w, b)
+        ln_op.check_args(x, w, b)
 
 
 def test_the_kernel_wrappers_take_only_cuda_tensors():
     x, w, b = _ok()
     with pytest.raises(ValueError):
-        ln_kernels.layer_norm_fwd(x, w, b, 1e-6)
+        ln_op.layer_norm_fwd(x, w, b, 1e-6)
     with pytest.raises(ValueError):
-        ln_kernels.layer_norm_bwd(x, x, w, torch.zeros(2, 2))
+        ln_op.layer_norm_bwd(x, x, w, torch.zeros(2, 2))

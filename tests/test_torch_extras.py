@@ -17,7 +17,7 @@ rank-k reconstruction ``doc_emb @ Vt`` is held for all of them.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -11,7 +11,7 @@ wherever a score is not within 1e-6 of a neighbour.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -11,7 +11,7 @@ scores (rtol 1e-5), and the recalls are equal; at "best" they hold
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr.data import realtext as jrt  # noqa: E402
 from tdr_torch.data import realtext as trt  # noqa: E402

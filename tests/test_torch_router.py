@@ -16,7 +16,7 @@ import tempfile
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr.data import SyntheticSpec, synthetic_corpus  # noqa: E402
 from tdr.rank import router as jrouter  # noqa: E402

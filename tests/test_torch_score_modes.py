@@ -17,7 +17,7 @@ that the card's order meets too; everything else at rtol 1e-6.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax.numpy as jnp  # noqa: E402
 

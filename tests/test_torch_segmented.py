@@ -10,7 +10,7 @@ plus the tail sums' cumsum rounding (``CUMSUM_ATOL``).
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr.models import BM25Model as JBM25  # noqa: E402
 from tdr.rank.segmented import SegmentedBM25 as JSeg  # noqa: E402

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import flax  # noqa: E402
 import jax  # noqa: E402

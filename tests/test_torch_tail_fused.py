@@ -19,7 +19,7 @@ caller's setting, in both of torch's APIs.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -14,7 +14,7 @@ not.  Inputs come from numpy seeds.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr_torch.ops.tf32 import tf32_round, tf32_split  # noqa: E402
 

@@ -9,9 +9,8 @@ import os
 import tempfile
 
 import numpy as np
-import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 

@@ -36,7 +36,7 @@ Tolerances, and why:
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import flax  # noqa: E402
 import flax.linen as nn  # noqa: E402

@@ -19,7 +19,7 @@ import os
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import flax  # noqa: E402
 import jax  # noqa: E402

@@ -16,9 +16,8 @@ third epoch's loss lands anywhere between about 2.2 and 3.3.  Run with
 import flax
 import jax
 import numpy as np
-import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 from tdr.train import contrastive as jc  # noqa: E402
 from tdr.utils.config import DenseConfig as JDenseConfig  # noqa: E402

@@ -27,7 +27,7 @@ take every data shard's positives (a per-shard loss fails these checks).
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import flax  # noqa: E402
 import flax.linen as nn  # noqa: E402

@@ -13,7 +13,7 @@ the margin to the next rank beats 1e-4.
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+from tests.torch_threads import torch
 
 import jax.numpy as jnp  # noqa: E402
 
