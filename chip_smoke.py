@@ -48,6 +48,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
    bounds, the plain versions, the plain forward with autograd's backward,
    and ``F.scaled_dot_product_attention`` (a yardstick: the port never
    calls it); one train step launches each 6 times;
+3f. the AdamW kernel (``ops.adamw.AdamW``) against torch's foreach path
+   (``torch.optim.AdamW``) over 3 steps from one state, at MiniLM's
+   ``DenseConfig()`` parameters and at one DeepSeek-V2-Lite MoE layer's,
+   gaps in ulps, timed beside its bound (28 bytes a parameter), the
+   foreach path and ``torch._fused_adamw_`` (a yardstick: the port never
+   calls it); one launch a step; one train step launches it once, and
+   three build its chunk table once;
 4. the sparse main path: ``LanguageRouter.retrieve`` over all queries,
    launch counts set to 0 just before one pass and read just after, then
    timed passes; queries/s and hard recall@10;
@@ -191,6 +198,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1187,6 +1195,206 @@ def attention_phase(reps=20):
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
     return recs
+
+
+def _ulp_gap(a, b):
+    """Two f32 tensors' largest gap in units of the last place: (of each
+    element's own value, of the tensor's largest |value|).  An element that
+    cancels to near 0 (the lerp's m + w (g - m)) carries the rounding of
+    its terms, so a kernel is held to the smaller of the two, 4 ulps."""
+    import torch
+
+    def ordered(t):
+        i = t.view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    a, b = a.reshape(-1), b.reshape(-1)
+    ulp = torch.finfo(torch.float32).eps * float(b.abs().max())
+    own, top, worst = 0, 0.0, 0.0
+    for s in range(0, a.numel(), 1 << 26):
+        x, y = a[s:s + (1 << 26)], b[s:s + (1 << 26)]
+        d = ordered(x) - ordered(y)
+        own = max(own, int(d.abs().max()))
+        gap = (x - y).abs() / ulp if ulp else d.abs().float()
+        top = max(top, float(gap.max()))
+        worst = max(worst, float(torch.minimum(d.abs().float(), gap).max()))
+    return own, top, worst
+
+
+def _device_ms(run, reps):
+    """``run()``'s device operations (kernels and copies) by torch.profiler
+    over ``reps`` calls after two: their summed time in ms, how many the
+    profiler kept, and their names.  The profiler has been seen to drop an
+    event of a run's last call, so a kernel's time a launch is the sum over
+    the events kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    total = sum(e.time_range.end - e.time_range.start for e in dev)
+    return total / 1e3, len(dev), sorted({e.name[:60] for e in dev})
+
+
+def check_adamw(shapes, label, reps=10, seed=0):
+    """The AdamW kernel (``tdr_torch/csrc/adamw.cu`` through
+    ``ops.adamw.AdamW``) against torch's foreach path (``torch.optim.AdamW``,
+    the plain version) on the card: parameters of ``shapes`` (f32, 0.02
+    randn), both optimizers from one state (moments loaded at step 2), the
+    same gradients for 3 steps; then the largest gaps of p, exp_avg and
+    exp_avg_sq in ulps (``_ulp_gap``: each element within 4 ulps of its
+    value or of the tensor's largest), one device operation a step (the
+    kernel: no copy), and the device times a step of the kernel, the
+    foreach path and ``torch._fused_adamw_`` (a yardstick: the port never
+    calls it) beside the bound, 28 bytes a parameter at 3.35 TB/s, and
+    the whole step's time with the host's share.  Returns the record."""
+    import torch
+    from tdr_torch.ops import adamw as ak
+    from tdr_torch.ops import cuda_build
+    from tdr_torch.train.contrastive import ADAM_BETAS, ADAM_EPS, \
+        load_adam_moments
+
+    lr, wd = 2e-5, 0.01                   # the train cells' configuration
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(shape, s):
+        return s * torch.randn(shape, generator=gen, device=DEVICE)
+
+    p0 = [randn(s, 0.02) for s in shapes]
+    mu = {str(i): randn(s, 1e-3) for i, s in enumerate(shapes)}
+    nu = {str(i): randn(s, 1e-3) ** 2 for i, s in enumerate(shapes)}
+    sets = []
+    for cls, kw in ((ak.AdamW, {}), (torch.optim.AdamW, {"foreach": True})):
+        ps = [p.clone().requires_grad_() for p in p0]
+        opt = cls(ps, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                  weight_decay=wd, **kw)
+        load_adam_moments(opt, [(str(i), p) for i, p in enumerate(ps)], 2,
+                          mu, nu)
+        sets.append((ps, opt))
+    del p0, mu, nu
+    n = sum(math.prod(s) for s in shapes)
+    grads = [torch.empty(s, device=DEVICE) for s in shapes]
+    for ps, _ in sets:
+        for p, g in zip(ps, grads):
+            p.grad = g
+    launches = []
+    for _ in range(3):
+        for g in grads:                   # in place: the table stays
+            g.normal_(0.0, 1e-3, generator=gen)
+        cuda_build.reset_launches()
+        sets[0][1].step()
+        launches.append(cuda_build.launches["adamw"])
+        sets[1][1].step()
+    torch.cuda.synchronize()
+    (ka, kopt), (pa, popt) = sets
+    need(launches == [1, 1, 1] and kopt.table_builds == 1,
+         f"adamw {label}: {launches} launches over 3 steps, "
+         f"{kopt.table_builds} tables built")
+    gaps = {}
+    for name in ("p", "exp_avg", "exp_avg_sq"):
+        own, top, worst = 0, 0.0, 0.0
+        for x, y in zip(ka, pa):
+            a, b = ((x.detach(), y.detach()) if name == "p" else
+                    (kopt.state[x][name], popt.state[y][name]))
+            o, t, w = _ulp_gap(a, b)
+            own, top, worst = max(own, o), max(top, t), max(worst, w)
+        need(worst <= 4, f"adamw {label}: {name} {worst} ulps from the "
+                         f"foreach path")
+        gaps[name] = {"own": own, "of_largest": top}
+    total, kept, names = _device_ms(kopt.step, reps)
+    need(reps - 1 <= kept <= reps and all("adamw" in n for n in names),
+         f"adamw {label}: {reps} steps ran {kept} device operations "
+         f"{names}, not one kernel each")
+    ms = total / kept
+    total, kept, _ = _device_ms(popt.step, reps)
+    plain, plain_ops = total / reps, kept / reps
+    step_ms, plain_step_ms = time_ms(kopt.step, reps), time_ms(popt.step, reps)
+    del ka, kopt, sets
+    steps = [torch.tensor(3.0, device=DEVICE) for _ in pa]
+    grads = [p.grad for p in pa]
+    moments = [[popt.state[p][k] for p in pa]
+               for k in ("exp_avg", "exp_avg_sq")]
+    params = [p.detach() for p in pa]
+
+    def library():
+        torch._fused_adamw_(params, grads, *moments, [], steps, lr=lr,
+                            beta1=ADAM_BETAS[0], beta2=ADAM_BETAS[1],
+                            weight_decay=wd, eps=ADAM_EPS, amsgrad=False,
+                            maximize=False)
+
+    lib = _device_ms(library, reps)[0] / reps
+    del pa, popt, params, grads, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = 28 * n / PEAK_BYTES_PER_S * 1e3
+    say(f"[adamw {label}] {len(shapes)} tensors, {n} parameters: within "
+        f"4 ulps of the foreach path over 3 steps (largest gap in ulps of "
+        f"the value / of the tensor's largest: "
+        + ", ".join(f"{k} {g['own']} / {g['of_largest']:.2f}"
+                    for k, g in gaps.items())
+        + f"); device time a step: kernel_ms={ms:.5f} "
+        f"bound_ms={bound:.5f} ({100 * bound / ms:.1f}% of it) "
+        f"plain_ms={plain:.5f} (foreach, {plain_ops:.0f} kernels) "
+        f"library_ms={lib:.5f} (torch._fused_adamw_); a whole step, host "
+        f"included: {step_ms:.5f} ms, foreach {plain_step_ms:.5f} ms")
+    return dict(name="adamw", route="cuda",
+                source="tdr_torch/csrc/adamw.cu",
+                replaces="none (XLA fused optax.adamw a leaf)", shape=label,
+                bound_by="bytes", launches=1, ms=ms, plain_ms=plain,
+                bound_ms=bound, library_ms=lib, step_ms=step_ms,
+                plain_step_ms=plain_step_ms, max_ulps=gaps)
+
+
+def adamw_phase(reps=10):
+    """Phase 3f: the AdamW kernel against torch's foreach path at MiniLM's
+    ``DenseConfig()`` parameters (29.9M) and at one MoE layer's of
+    DeepSeek-V2-Lite (the expert stacks, the shared experts, the gate, MLA
+    and the norms), with times; then one train step at ``DenseConfig()``
+    width launches it once, and three steps build its chunk table once
+    (autograd's new gradient storage each step builds none).  Returns the
+    MoE layer's record."""
+    import numpy as np
+    import torch
+    from tdr_torch.models.encoder import DualEncoder
+    from tdr_torch.models.mla_moe import Layer
+    from tdr_torch.train import create_train_state, make_train_step
+    from tdr_torch.utils.config import DenseConfig, MlaMoeConfig
+
+    with torch.device("meta"):
+        minilm = [tuple(p.shape) for p in DualEncoder(DenseConfig())
+                  .parameters()]
+        moe = [tuple(p.shape) for p in Layer(MlaMoeConfig(), moe=True)
+               .parameters()]
+    check_adamw(minilm, "MiniLM DenseConfig()", reps)
+    rec = check_adamw(moe, "one DeepSeek-V2-Lite MoE layer", reps, seed=1)
+    cfg = DenseConfig()
+    counts = train_step_launches(cfg)
+    need(counts["adamw"] == 1, f"one train step launched the AdamW kernel "
+                               f"{counts['adamw']} times, not 1")
+    state = create_train_state(cfg, lr=2e-5, seed=0, device=DEVICE)
+    rng = np.random.RandomState(1)
+    ids = rng.randint(1, cfg.vocab_size, (8, cfg.max_len)).astype(np.int32)
+    mask = np.ones((8, cfg.max_len), np.int32)
+    step = make_train_step()
+    for _ in range(3):
+        step(state, {"q_ids": ids, "q_mask": mask, "p_ids": ids[::-1].copy(),
+                     "p_mask": mask})
+    torch.cuda.synchronize()
+    builds = state.optimizer.table_builds
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    need(builds == 1, f"three train steps built {builds} AdamW chunk "
+                      f"tables, not 1")
+    say(f"one train step at DenseConfig() width: adamw {counts['adamw']} "
+        f"launch; three steps built {builds} chunk table")
+    return rec
 
 
 def dense_phase(corpus, queries, bench_emb, bench_q, reps, profile=False):
@@ -3762,6 +3970,9 @@ def main() -> None:
     # -- phase 3e: the encoder's attention kernels ---------------------------
     rec_attn = attention_phase()
 
+    # -- phase 3f: the train step's AdamW kernel -----------------------------
+    rec_adamw = adamw_phase()
+
     # -- phase 4: the main path ----------------------------------------------
     cuda_build.reset_launches()
     router.retrieve(queries.queries, queries.langs, k=10)
@@ -3935,7 +4146,7 @@ def main() -> None:
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [rec_k1, rec_k2, rec_k2f, rec_k3, rec_k3f,
-                                rec_k4, *rec_ln, *rec_attn]}))
+                                rec_k4, *rec_ln, *rec_attn, rec_adamw]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

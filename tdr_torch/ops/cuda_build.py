@@ -18,7 +18,8 @@ the device it is given (a mesh shard or a pipeline stage on another card).
 (``fused_head_f32``, ``fused_flat_f32``); the LayerNorm's two wrappers as
 ``layer_norm_fwd`` and ``layer_norm_bwd``, one a call (the backward's call
 launches its kernel and the reduction of its partial sums); the attention's
-as ``attention_fwd`` and ``attention_bwd``, one a call.
+as ``attention_fwd`` and ``attention_bwd``, one a call; the AdamW update's
+as ``adamw``, one a param group and device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 SOURCES = ("tail_compact.cu", "fused_head.cu", "fused_flat.cu",
-           "head_scores.cu", "layer_norm.cu", "attention.cu")
+           "head_scores.cu", "layer_norm.cu", "attention.cu", "adamw.cu")
 HEADERS = ("hopper.cuh",)     # included by the sources: a change rebuilds all
 LIB_PATH = os.path.join(BUILD_DIR, "libtdr_torch_kernels.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,7 +45,8 @@ launches: Dict[str, int] = {"tail_compact": 0, "fused_head": 0,
                             "fused_head_f32": 0, "fused_flat": 0,
                             "fused_flat_f32": 0, "head_scores": 0,
                             "layer_norm_fwd": 0, "layer_norm_bwd": 0,
-                            "attention_fwd": 0, "attention_bwd": 0}
+                            "attention_fwd": 0, "attention_bwd": 0,
+                            "adamw": 0}
 build_log: str = ""
 build_seconds: Optional[float] = None
 
@@ -72,6 +74,8 @@ _SIGNATURES = {
                           _I, _F, _P],
     "tdr_attention_bwd": [_P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
                           _P, _I, _I, _I, _I, _F, _P],
+    "tdr_adamw_blocks": [_P],
+    "tdr_adamw": [_P, _I, _I, _P, _I] + [_F] * 7 + [_P],
 }
 
 

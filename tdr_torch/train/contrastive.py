@@ -5,8 +5,9 @@ with AdamW, on one device or sharded over a mesh.  What ``tdr`` computes,
 in torch idiom:
 
 * ``TrainState`` holds the encoder (a ``DualEncoder``, or the MLA + MoE
-  ``MlaMoeEncoder`` of ``models.mla_moe``), its ``torch.optim.AdamW`` and
-  the step count;
+  ``MlaMoeEncoder`` of ``models.mla_moe``), its AdamW (``ops.adamw.AdamW``:
+  ``torch.optim.AdamW``, whose update of CUDA parameters is one
+  hand-written kernel launch a step) and the step count;
 * ``optax.adamw(lr, weight_decay)`` (b1 0.9, b2 0.999, eps 1e-8, decay on
   every parameter, LayerNorm and biases included) is ``torch.optim.AdamW``
   with the same constants: the same update in another order of operations,
@@ -48,6 +49,7 @@ from tdr_torch.models.encoder import (DualEncoder, encode_shards,
                                       encoder_state_from_flax, init_encoder,
                                       module_device)
 from tdr_torch.models.mla_moe import init_mla_moe
+from tdr_torch.ops.adamw import AdamW
 from tdr_torch.ops.precision import ieee_f32
 from tdr_torch.parallel import train as tp
 from tdr_torch.parallel.mesh import Mesh, _copy, data_sharding
@@ -62,14 +64,13 @@ ADAM_EPS = 1e-8
 @dataclass
 class TrainState:
     model: nn.Module
-    optimizer: torch.optim.AdamW
+    optimizer: AdamW
     step: int = 0
 
 
-def _adamw(model: nn.Module, lr: float,
-           weight_decay: float) -> torch.optim.AdamW:
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=ADAM_BETAS,
-                             eps=ADAM_EPS, weight_decay=weight_decay)
+def _adamw(model: nn.Module, lr: float, weight_decay: float) -> AdamW:
+    return AdamW(model.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                 weight_decay=weight_decay)
 
 
 def create_train_state(cfg: Union[DenseConfig, MlaMoeConfig],
@@ -114,13 +115,18 @@ def load_adam_moments(opt: torch.optim.AdamW, named_params: NamedParams,
                       count: int, exp_avg: Mapping[str, torch.Tensor],
                       exp_avg_sq: Mapping[str, torch.Tensor]) -> None:
     """Set every parameter's AdamW state: ``count`` updates taken, first and
-    second moments keyed by state-dict name."""
+    second moments keyed by state-dict name, copied into f32 tensors laid
+    out like their parameter, as torch makes them (a moment carried from
+    flax's layout is a transposed view; the card's kernel takes the
+    parameter's layout)."""
     for name, p in named_params:
         opt.state[p] = {
             # torch keeps the step as an f32 scalar on the CPU (not fused)
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": exp_avg[name].to(p.device, torch.float32).clone(),
-            "exp_avg_sq": exp_avg_sq[name].to(p.device, torch.float32).clone(),
+            "exp_avg": torch.empty_like(p, dtype=torch.float32).copy_(
+                exp_avg[name]),
+            "exp_avg_sq": torch.empty_like(p, dtype=torch.float32).copy_(
+                exp_avg_sq[name]),
         }
 
 
@@ -251,7 +257,7 @@ class ShardedTrainState:
     cfg: DenseConfig
     specs: Dict[str, Spec]
     params: List[List[Dict[str, torch.Tensor]]]
-    optimizers: List[List[torch.optim.AdamW]]
+    optimizers: List[List[AdamW]]
     step: int = 0
 
     def per_device_bytes(self) -> Dict[str, int]:
@@ -308,9 +314,9 @@ def shard_train_state(mesh: Mesh, state: TrainState) -> ShardedTrainState:
                 dev, copy=True)
 
         params = {k: local(v, k).requires_grad_() for k, v in full.items()}
-        opt = torch.optim.AdamW(list(params.values()), lr=group["lr"],
-                                betas=group["betas"], eps=group["eps"],
-                                weight_decay=group["weight_decay"])
+        opt = AdamW(list(params.values()), lr=group["lr"],
+                    betas=group["betas"], eps=group["eps"],
+                    weight_decay=group["weight_decay"])
         load_adam_moments(opt, params.items(), count,
                           {k: local(v, k) for k, v in mu.items()},
                           {k: local(v, k) for k, v in nu.items()})

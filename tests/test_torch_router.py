@@ -115,7 +115,8 @@ def test_slice_counts_no_launch_on_cpu():
                                    "fused_head_f32": 0, "fused_flat": 0,
                                    "fused_flat_f32": 0, "head_scores": 0,
                                    "layer_norm_fwd": 0, "layer_norm_bwd": 0,
-                                   "attention_fwd": 0, "attention_bwd": 0}
+                                   "attention_fwd": 0, "attention_bwd": 0,
+                                   "adamw": 0}
 
 
 def test_engine_choice_follows_jax_rules():
